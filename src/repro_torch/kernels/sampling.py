@@ -1,0 +1,89 @@
+"""K3: fused sample-from-logits for the serving step (DESIGN.md §9).
+
+Replaces the Pallas TPU kernel ``_sample_kernel`` / ``_sample_pallas`` of
+``repro.kernels.sampling``; the CUDA source is ``csrc/sampling.cu``. The
+sampling law is the reference's Gumbel-max form, one masked argmax per slot:
+
+    categorical(lg / t)  ==  argmax(lg / t + gumbel noise)
+
+Rows with ``t <= 0`` take the plain argmax, ties to the lowest index
+(:func:`argmax_low`). The noise is an input: the engine draws it with a
+``torch.Generator``, so temperature streams match the reference in
+distribution only (its threefry ``fold_in`` key chain is not ported), while
+greedy rows match it bitwise.
+
+Beside the kernel: its plain version (:func:`sample_plain`) and a launch
+counter, ``sample.launches``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, dispatch
+
+
+def argmax_low(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Argmax with explicit lowest-index tie-breaking; a row holding a NaN
+    returns its length, as the reference's masked min does."""
+    m = x.amax(dim=dim, keepdim=True)
+    n = x.shape[dim]
+    shape = [1] * x.ndim
+    shape[dim] = n
+    iota = torch.arange(n, dtype=torch.int32, device=x.device).reshape(shape)
+    return torch.where(x == m, iota, n).amin(dim=dim).to(torch.int32)
+
+
+def sample_plain(lg: torch.Tensor, noise: torch.Tensor,
+                 temps: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version. lg, noise (S, V) f32; temps (S,) f32."""
+    hot = lg / temps.clamp_min(1e-6)[:, None] + noise
+    return torch.where(temps > 0.0, argmax_low(hot), argmax_low(lg))
+
+
+def sample(lg: torch.Tensor, noise: torch.Tensor,
+           temps: torch.Tensor) -> torch.Tensor:
+    """(S,) int32 tokens. A CUDA tensor launches K3 (or raises); a CPU
+    tensor runs the plain version."""
+    if lg.ndim != 2 or noise.shape != lg.shape or temps.shape != lg.shape[:1]:
+        raise ValueError(f"shapes lg {tuple(lg.shape)}, noise "
+                         f"{tuple(noise.shape)}, temps {tuple(temps.shape)}:"
+                         " need (S,V), (S,V), (S,)")
+    if not all(t.dtype == torch.float32 for t in (lg, noise, temps)):
+        raise TypeError("lg, noise and temps must be float32")
+    if not dispatch.use_kernel(lg):
+        return sample_plain(lg, noise, temps)
+    if not all(t.is_cuda and t.device == lg.device for t in (noise, temps)):
+        raise ValueError("all operands must lie on the same CUDA device")
+    if not all(t.is_contiguous() for t in (lg, noise, temps)):
+        raise ValueError("operands must be contiguous")
+    s, v = lg.shape
+    out = torch.empty((s,), dtype=torch.int32, device=lg.device)
+    err = _build.load("sampling").sample_tokens(
+        lg.data_ptr(), noise.data_ptr(), temps.data_ptr(), out.data_ptr(),
+        s, v, _build.stream_ptr())
+    _build.check(err, "sampling")
+    sample.launches += 1
+    return out
+
+
+sample.launches = 0
+
+
+def gumbel_noise(shape, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """Standard Gumbel draws, ``-log(-log(u))`` with u in [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=device)
+    u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Greedy/temperature sampling for a decode batch on device: logits
+    (S, V) float, temps (S,). Returns (S,) int32."""
+    lg = logits.to(torch.float32).contiguous()
+    noise = gumbel_noise(lg.shape, generator, lg.device)
+    return sample(lg, noise, temps.to(torch.float32).contiguous())

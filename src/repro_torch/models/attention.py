@@ -1,0 +1,154 @@
+"""GQA attention over a dense KV cache (port of ``repro.models.attention``,
+the dense-cache decode branch).
+
+Serving never runs the blockwise (flash-style) path: prefill writes its
+K/V slab into the cache and attends through :func:`decode_attention` over
+the whole ``max_len`` extent with ragged masks, exactly as the reference
+does. ``blockwise_attention`` and the paged branches come with later slices.
+
+The cache is updated in place (``cache_update``): the reference returns a
+new cache, but every caller here drops the old one, and in-place writes
+save a cache-sized copy per layer.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import ParamSpec, dense, dense_in, rms_norm, rope
+
+Tensor = torch.Tensor
+NEG = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskSpec:
+    causal: bool = True
+    prefix_len: int = 0          # bidirectional / window-exempt prefix
+    window: Optional[int] = None  # kv_pos > q_pos - window
+
+
+def mask_allowed(q_pos: Tensor, kv_pos: Tensor, mask: MaskSpec) -> Tensor:
+    """Boolean visibility; q_pos, kv_pos broadcastable int tensors."""
+    if mask.causal:
+        allowed = kv_pos <= q_pos
+    else:
+        allowed = torch.ones(torch.broadcast_shapes(q_pos.shape, kv_pos.shape),
+                             dtype=torch.bool, device=q_pos.device)
+    if mask.prefix_len:
+        allowed = allowed | ((q_pos < mask.prefix_len)
+                             & (kv_pos < mask.prefix_len))
+    if mask.window is not None:
+        in_window = kv_pos > (q_pos - mask.window)
+        if mask.prefix_len:
+            in_window = in_window | (kv_pos < mask.prefix_len)
+        allowed = allowed & in_window
+    return allowed
+
+
+class KVCache(NamedTuple):
+    """Per-layer KV cache. k/v: (B, S_max, Hkv, D)."""
+
+    k: Tensor
+    v: Tensor
+
+
+def decode_attention(
+    q: Tensor,            # (B, Sq, H, D)
+    k: Tensor,            # (B, S_max, Hkv, D) — cache
+    v: Tensor,
+    q_positions: Tensor,  # (B, Sq) absolute positions of the queries
+    lengths: Tensor,      # (B,) valid cache length (inclusive of new tokens)
+    mask: MaskSpec,
+) -> Tensor:
+    """Masked softmax attention of the queries over the cache. Masked lanes
+    are exact zeros after the softmax; a row with nothing visible (a dummy
+    admission row of length 0) returns zeros."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    dv = v.shape[-1]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qi = q.reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+    s = torch.einsum("bkgqd,bjkd->bkgqj", qi.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    ok = mask_allowed(q_positions[:, :, None], kv_pos[None, None, :], mask)
+    ok = ok & (kv_pos[None, None, :] < lengths[:, None, None])
+    ok = ok[:, None, None]
+    s = torch.where(ok, s, NEG)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(ok, e / e.sum(dim=-1, keepdim=True), 0.0)
+    out = torch.einsum("bkgqj,bjkd->bkgqd", p, v.to(torch.float32))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv)
+
+
+def cache_update(cache: KVCache, k_new: Tensor, v_new: Tensor,
+                 positions: Tensor) -> KVCache:
+    """Write (B, Sq, Hkv, D) at per-row start ``positions`` (B,), in place.
+    Like the reference's dynamic_update_slice, a start past
+    ``S_max - Sq`` is clamped so the slab always fits."""
+    b, sq = k_new.shape[:2]
+    start = torch.clamp(positions.to(torch.int64), 0, cache.k.shape[1] - sq)
+    rows = torch.arange(b, device=k_new.device)[:, None]
+    cols = start[:, None] + torch.arange(sq, device=k_new.device)[None, :]
+    cache.k[rows, cols] = k_new.to(cache.k.dtype)
+    cache.v[rows, cols] = v_new.to(cache.v.dtype)
+    return cache
+
+
+def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, hkv, hd = cfg.d_model, cfg.n_kv_heads, cfg.resolved_head_dim
+    h = cfg.padded_heads
+    specs = {
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"),
+                        scale=1.0 / math.sqrt(h * hd / d)),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec((hd,), ("head_dim",), init="ones")
+        specs["k_norm"] = ParamSpec((hd,), ("head_dim",), init="ones")
+    return specs
+
+
+def head_mask(cfg: ModelConfig, device=None) -> Optional[Tensor]:
+    """(padded_heads,) 1/0 mask over kv-major heads (head = kv*g + j): the
+    real heads of each kv group come first, pads at the tail."""
+    h_pad = cfg.padded_heads
+    if h_pad == cfg.n_heads:
+        return None
+    hkv = max(cfg.n_kv_heads, 1)
+    g_pad = h_pad // hkv
+    g_real = cfg.n_heads // hkv
+    mask = (torch.arange(g_pad, device=device) < g_real).to(torch.float32)
+    return mask.repeat(hkv)
+
+
+def attention_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
+                    *, mask: MaskSpec, positions: Tensor, cache: KVCache,
+                    lengths: Tensor) -> tuple[Tensor, KVCache]:
+    """Self-attention through the dense cache: project, qk-norm, rope,
+    write the new K/V at ``positions[:, 0]``, attend over the cache.
+    ``lengths`` (B,) are the post-update cache lengths."""
+    q = dense(x, params["wq"], cfg)   # (B, S, H, hd)
+    k = dense(x, params["wk"], cfg)
+    v = dense(x, params["wv"], cfg)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    if cfg.pos_variant == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    cache = cache_update(cache, k, v, positions[:, 0])
+    out = decode_attention(q, cache.k, cache.v, positions, lengths, mask)
+    hm = head_mask(cfg, x.device)
+    if hm is not None:
+        out = out * hm[None, None, :, None]
+    y = dense_in(out.to(cfg.activation_dtype), params["wo"], cfg)
+    return y, cache
