@@ -2,7 +2,7 @@
 
 Mirrors ``src/repro`` module for module. Plain tensor code is PyTorch; every
 Pallas kernel of the JAX package on the ported path is a hand-written CUDA
-kernel under ``csrc/`` (K1: kernels/timefloats_matmul.py, K3:
+kernel under ``csrc/`` (K1 and K2: kernels/timefloats_matmul.py, K3:
 kernels/sampling.py), with its plain PyTorch version beside it. The package
 never imports JAX or ``repro``.
 """

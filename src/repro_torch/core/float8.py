@@ -1,6 +1,6 @@
 """FP8 (E4M4-style) codec used by TimeFloats, in PyTorch.
 
-Port of ``repro.core.float8`` (forward subset). A value is
+Port of ``repro.core.float8``. A value is
 
     value = sign * (1 + mantissa / 2^man_bits) * 2^(exponent - bias)
 
@@ -13,13 +13,15 @@ m̂ = 2^man_bits + mantissa.
 Everything here is plain tensor code and runs on whatever device its input
 lies on. The arithmetic follows the JAX reference op for op, so fields,
 scales and prescale exponents agree with it bit for bit (tests pin this).
+Stochastic rounding draws its noise from a ``torch.Generator``, not from a
+JAX key, so it matches the reference in distribution only.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import struct
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -85,13 +87,21 @@ class F8Fields(NamedTuple):
         return torch.where(self.nonzero, mhat, 0)
 
 
-def decompose(x: Tensor, fmt: FloatFormat = E4M4) -> F8Fields:
-    """Round-to-nearest-even quantization of ``x`` to ``fmt``, as fields."""
+def decompose(x: Tensor, fmt: FloatFormat = E4M4, *,
+              generator: Optional[torch.Generator] = None) -> F8Fields:
+    """Quantization of ``x`` to ``fmt``, as fields: round to nearest even,
+    or stochastic rounding with uniform noise from ``generator``."""
     x = x.to(torch.float32)
     m, e = torch.frexp(x.abs())  # |x| = m * 2^e, m in [0.5, 1)
     sig, uexp = m * 2.0, e - 1
     scale = fmt.significand_scale
-    man = torch.round((sig - 1.0) * scale)  # ties to even, like jnp.round
+    frac = (sig - 1.0) * scale  # in [0, scale)
+    if generator is not None:
+        noise = torch.rand(x.shape, generator=generator,
+                           dtype=torch.float32, device=x.device)
+        man = torch.floor(frac + noise)
+    else:
+        man = torch.round(frac)  # ties to even, like jnp.round
     # mantissa round-up overflow: sig -> 2.0 means exp += 1, man = 0
     carry = man >= scale
     man = torch.where(carry, 0.0, man)
@@ -129,6 +139,11 @@ def compose(fields: F8Fields, fmt: FloatFormat = E4M4) -> Tensor:
 def quantize(x: Tensor, fmt: FloatFormat = E4M4) -> Tensor:
     """Fake-quantize: f32 -> fmt -> f32."""
     return compose(decompose(x, fmt), fmt)
+
+
+def quantize_stochastic(x: Tensor, generator: torch.Generator,
+                        fmt: FloatFormat = E4M4) -> Tensor:
+    return compose(decompose(x, fmt, generator=generator), fmt)
 
 
 # ---------------------------------------------------------------------------
@@ -210,3 +225,48 @@ def pow2_amax_scale(x: Tensor, fmt: FloatFormat = E4M4) -> Tensor:
     log2a = log2_floor(amax)
     return torch.where(amax > 0, exp2i((target - log2a).to(torch.int32)),
                        torch.ones((), dtype=torch.float32, device=x.device))
+
+
+def quantize_scaled(x: Tensor, fmt: FloatFormat = E4M4,
+                    generator: Optional[torch.Generator] = None) -> Tensor:
+    """Scale-aware fake-quantization Q(x*s)/s with the per-tensor pow2 amax
+    scale: codes live on the E4M4 grid relative to the tensor's reference,
+    as the in-situ weight store holds them. ``generator`` selects
+    stochastic rounding."""
+    s = pow2_amax_scale(x, fmt)
+    xs = x.to(torch.float32) * s
+    q = (quantize_stochastic(xs, generator, fmt) if generator is not None
+         else quantize(xs, fmt))
+    return (q / s).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Packing: one uint8 code (exponent << man_bits | mantissa) per value and a
+# separate sign plane whose second bit marks the nonzero values, as the
+# reference packs them. The at-rest form of in-situ FP8 weights and of
+# packed checkpoint leaves.
+# ---------------------------------------------------------------------------
+
+
+class PackedF8(NamedTuple):
+    code: Tensor     # uint8: (exp << man_bits) | man; 0 where the value is 0
+    signbit: Tensor  # uint8: bit 0 the sign, bit 1 set for nonzero values
+
+
+def pack(fields: F8Fields, fmt: FloatFormat = E4M4) -> PackedF8:
+    exp = fields.exp.to(torch.uint8)
+    man = fields.man.to(torch.uint8)
+    code = torch.where(fields.nonzero, (exp << fmt.man_bits) | man,
+                       0).to(torch.uint8)
+    signbit = torch.where(fields.sign < 0, 1, 0).to(torch.uint8)
+    signbit = signbit | torch.where(fields.nonzero, 2, 0).to(torch.uint8)
+    return PackedF8(code=code, signbit=signbit)
+
+
+def unpack(p: PackedF8, fmt: FloatFormat = E4M4) -> F8Fields:
+    exp = (p.code >> fmt.man_bits).to(torch.int8)
+    man = (p.code & fmt.max_man_code).to(torch.int8)
+    nonzero = (p.signbit & 2) != 0
+    sign = torch.where((p.signbit & 1) != 0, -1, 1).to(torch.int8)
+    return F8Fields(sign=sign, exp=torch.where(nonzero, exp, 0),
+                    man=torch.where(nonzero, man, 0), nonzero=nonzero)

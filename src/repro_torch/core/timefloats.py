@@ -1,14 +1,18 @@
-"""TimeFloats scalar products in PyTorch: the forward subset.
+"""TimeFloats scalar products in PyTorch.
 
 Port of ``repro.core.timefloats``: the block-aligned (separable) int8
 quantization, the chunk-ordered int8 MAC that is the forward kernel's
 bit-exact spec, the dequantize-and-matmul ``separable`` form, the per-tensor
-pow2 prescale and a forward ``linear``. ``mode="pallas"`` routes the MAC
-through the hand-written CUDA kernel K1 (kernels/timefloats_matmul.py); the
-mode keeps its reference name so configs map one to one.
+pow2 prescale, and the training primitive: ``linear`` / ``linear_cached``
+as ``torch.autograd.Function``s whose forward quantizes each operand once
+and whose backward is a transposed read of the stored planes (DESIGN.md
+§3). ``mode="pallas"`` routes the forward MAC through the hand-written CUDA
+kernel K1 and dx through K2 (kernels/timefloats_matmul.py); the mode keeps
+its reference name so configs map one to one.
 
-Not ported yet (training slice): ``exact`` mode, the autograd function with
-the transposed-read backward, the prepared-operand cache and the op census.
+Not ported yet: ``exact`` mode (the five ``step*`` functions,
+``matmul_exact``, ``NoiseParams``) and the op census (``op_census``,
+``census_scale``, ``backward_census``), which serves the hw twin.
 """
 from __future__ import annotations
 
@@ -33,9 +37,10 @@ class TFConfig:
     adc_mode   — "dynamic": idealized auto-ranged full-scale (per call);
                  "fixed": worst-case full-scale block*(2^(m+1)-1)^2.
     mode       — "exact" | "separable" | "pallas".
-
-    The reference's ``cache`` field (residuals for the backward pass) comes
-    with the training slice.
+    cache      — save the quantized operands as the backward's residuals,
+                 so the backward is a transposed read of the stored planes
+                 (DESIGN.md §3). ``False`` keeps the raw operands and
+                 re-quantizes them in the backward: bit-identical results.
     """
 
     fmt: FloatFormat = E4M4
@@ -43,6 +48,7 @@ class TFConfig:
     adc_bits: int | None = None
     adc_mode: str = "dynamic"
     mode: str = "exact"
+    cache: bool = True
 
     @property
     def max_significand(self) -> int:
@@ -220,11 +226,214 @@ def _scaled_matmul(x: Tensor, w: Tensor, cfg: TFConfig) -> Tensor:
     return matmul(xs, ws, cfg) / (sx * sw)
 
 
+def matmul_separable_transposed(g: Tensor, qw: QuantizedOperand, k_dim: int,
+                                cfg: TFConfig = DEFAULT) -> Tensor:
+    """dx = g @ W^T as a transposed read of the stored weight planes: the
+    planes are dequantized (exact) in W's own (K, N) layout and contracted
+    over N; only the streamed ``g`` is quantized, along its contraction dim
+    N. Transposed reads are modeled ADC-free (DESIGN.md §3)."""
+    n_dim = g.shape[1]
+    gd = dequantize_input(quantize_input(g, cfg), n_dim)   # (M2, N)
+    c, b, _ = qw.q.shape
+    wv = dequantize_weight(qw, c * b)                      # (Kpad, N)
+    return (gd @ wv.T)[:, :k_dim]
+
+
+def matmul_separable_outer(qx: QuantizedOperand, g: Tensor, k_dim: int,
+                           cfg: TFConfig = DEFAULT) -> Tensor:
+    """dW = x^T @ g as a transposed read of the stored activation planes;
+    ``g`` is quantized once, chunked along M (its contraction dim here)."""
+    m2 = g.shape[0]
+    gd = dequantize_weight(quantize_weight(g, cfg), m2)    # (M2, N)
+    c, _, b = qx.q.shape
+    xd = dequantize_input(qx, c * b)                       # (M2, Kpad)
+    return (xd.T @ gd)[:k_dim]
+
+
+# ---------------------------------------------------------------------------
+# Quantized-operand cache (DESIGN.md §3): operands are prescaled and
+# quantized once; the backward pass reads the stored planes transposed.
+# ---------------------------------------------------------------------------
+
+
+class PreparedOperand(NamedTuple):
+    """One prescaled, quantized operand: the unit of the cache.
+
+    scale — () f32 per-tensor pow2 amax prescale; the planes encode
+            ``operand * scale``.
+    q     — block-aligned int8 planes and per-chunk scales.
+    """
+
+    scale: Tensor
+    q: QuantizedOperand
+
+
+# Calls of prepare_input / prepare_weight. The reference counts once per
+# trace; the port runs eagerly and counts once per call, so a training step
+# whose weights come from the per-step cache shows exactly one
+# prepare_weight per eligible leaf, all made before the loss runs.
+_QUANT_COUNTS = {"prepare_input": 0, "prepare_weight": 0}
+
+
+def quant_trace_counts() -> dict:
+    return dict(_QUANT_COUNTS)
+
+
+def reset_quant_trace_counts() -> None:
+    for k in _QUANT_COUNTS:
+        _QUANT_COUNTS[k] = 0
+
+
+def _check_mode(cfg: TFConfig) -> None:
+    if cfg.mode == "exact":
+        raise NotImplementedError("TimeFloats exact mode is not ported yet")
+    if cfg.mode not in ("separable", "pallas"):
+        raise ValueError(f"unknown TimeFloats mode: {cfg.mode!r}")
+
+
+def prepare_input(x2: Tensor, cfg: TFConfig = DEFAULT) -> PreparedOperand:
+    """(M, K) activation -> cache entry (quantized once; read by fwd + dW)."""
+    _check_mode(cfg)
+    _QUANT_COUNTS["prepare_input"] += 1
+    xs, s = _pow2_prescale(x2, cfg)
+    return PreparedOperand(scale=s, q=quantize_input(xs, cfg))
+
+
+def prepare_weight(w: Tensor, cfg: TFConfig = DEFAULT) -> PreparedOperand:
+    """(K, N) weight -> cache entry (quantized once; read by fwd + dx)."""
+    _check_mode(cfg)
+    _QUANT_COUNTS["prepare_weight"] += 1
+    ws, s = _pow2_prescale(w, cfg)
+    return PreparedOperand(scale=s, q=quantize_weight(ws, cfg))
+
+
+def _matmul_prepared(px: PreparedOperand, pw: PreparedOperand, m_dim: int,
+                     k_dim: int, n_dim: int, cfg: TFConfig) -> Tensor:
+    """Forward product from cache entries; bit-identical to
+    ``matmul(xs, ws, cfg)`` on the prescaled operands."""
+    if cfg.mode == "pallas":
+        from repro_torch.kernels import ops
+
+        return ops.quantized_matmul(px.q, pw.q, cfg)[:m_dim, :n_dim]
+    if cfg.adc_bits is not None:
+        return matmul_from_quantized(px.q, pw.q, cfg)
+    return dequantize_input(px.q, k_dim) @ dequantize_weight(pw.q, k_dim)
+
+
+def _bwd_prepared(cfg: TFConfig, px: PreparedOperand, pw: PreparedOperand,
+                  g2: Tensor, k_dim: int) -> tuple[Tensor, Tensor]:
+    """dx = g @ W^T and dW = x^T @ g from the stored operands. dx reads the
+    stored weight planes transposed (K2 in pallas mode); dW, the in-situ
+    update's outer product, stays a dequantize + matmul in every mode, as
+    in the reference."""
+    gs, sg = _pow2_prescale(g2, cfg)
+    if cfg.mode == "pallas" and cfg.adc_bits is None:
+        from repro_torch.kernels import ops
+
+        dx = ops.timefloats_matmul_transposed(gs, pw.q, k_dim, cfg)
+    else:
+        dx = matmul_separable_transposed(gs, pw.q, k_dim, cfg)
+    dw = matmul_separable_outer(px.q, gs, k_dim, cfg)
+    return dx / (sg * pw.scale), dw / (px.scale * sg)
+
+
+def _forward_prepared(x2: Tensor, pw: PreparedOperand, n_dim: int,
+                      cfg: TFConfig) -> tuple[Tensor, PreparedOperand]:
+    px = prepare_input(x2, cfg)
+    y = _matmul_prepared(px, pw, x2.shape[0], x2.shape[1], n_dim, cfg)
+    return y / (px.scale * pw.scale), px
+
+
+# The residuals go through ctx.save_for_backward, so activation
+# checkpointing (models/model.py, remat="full") can drop and recompute them.
+def _save(ctx, *ops: PreparedOperand) -> None:
+    ctx.save_for_backward(*(t for op in ops for t in (op.scale, op.q.q,
+                                                      op.q.scale)))
+
+
+def _load(ctx) -> list:
+    t = ctx.saved_tensors
+    return [PreparedOperand(t[i], QuantizedOperand(t[i + 1], t[i + 2]))
+            for i in range(0, len(t), 3)]
+
+
+class _Linear(torch.autograd.Function):
+    """``linear``: forward quantizes each operand once; backward reads the
+    residuals (quantized planes with ``cfg.cache``, else the raw operands,
+    re-quantized there: bit-identical)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, cfg):
+        ctx.cfg, ctx.k_dim, ctx.dtypes = cfg, x2.shape[1], (x2.dtype, w.dtype)
+        if cfg.cache:
+            pw = prepare_weight(w, cfg)
+            y, px = _forward_prepared(x2, pw, w.shape[1], cfg)
+            _save(ctx, px, pw)
+        else:
+            y = _scaled_matmul(x2, w, cfg)
+            ctx.save_for_backward(x2, w)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg = ctx.cfg
+        if cfg.cache:
+            px, pw = _load(ctx)
+        else:
+            x2, w = ctx.saved_tensors
+            px, pw = prepare_input(x2, cfg), prepare_weight(w, cfg)
+        return _grads(ctx, px, pw, g) + (None,)
+
+
+class _LinearCached(torch.autograd.Function):
+    """``linear_cached``: the weight's cache entry ``pw`` is an input; it
+    takes no gradient, and ``w`` is only the gradient's attachment point."""
+
+    @staticmethod
+    def forward(ctx, x2, w, pw_scale, pw_q, pw_s, cfg):
+        ctx.cfg, ctx.k_dim, ctx.dtypes = cfg, x2.shape[1], (x2.dtype, w.dtype)
+        pw = PreparedOperand(pw_scale, QuantizedOperand(pw_q, pw_s))
+        y, px = _forward_prepared(x2, pw, w.shape[1], cfg)
+        _save(ctx, px, pw)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        px, pw = _load(ctx)
+        return _grads(ctx, px, pw, g) + (None,) * 4
+
+
+def _grads(ctx, px: PreparedOperand, pw: PreparedOperand, g: Tensor
+           ) -> tuple:
+    """(dx in x's dtype, dW in w's dtype)."""
+    x_dt, w_dt = ctx.dtypes
+    dx, dw = _bwd_prepared(ctx.cfg, px, pw, g, ctx.k_dim)
+    return dx.to(x_dt), dw.to(w_dt)
+
+
 def linear(x: Tensor, w: Tensor, cfg: TFConfig = DEFAULT) -> Tensor:
-    """Forward TimeFloats linear layer: y = x @ w with per-tensor pow2
-    prescaling of both operands. Accepts leading batch dims on x; returns
-    f32. (The backward pass, a transposed read of the stored planes, comes
-    with the training slice.)"""
+    """Training linear layer y = x @ w in TimeFloats arithmetic, f32 out.
+
+    Forward and backward both run "in the crossbar": y is the block-MAC of
+    the prescaled, quantized operands; dx = g @ W^T is a transposed read of
+    the same stored weight planes, and dW = x^T @ g an outer-product read of
+    the stored activation planes. Only the streamed gradient is quantized
+    in the backward. The quantizer passes gradients straight through. x may
+    carry leading batch dims."""
     lead = x.shape[:-1]
-    y = _scaled_matmul(x.reshape(-1, x.shape[-1]), w, cfg)
+    y = _Linear.apply(x.reshape(-1, x.shape[-1]), w, cfg)
+    return y.reshape(*lead, w.shape[-1])
+
+
+def linear_cached(x: Tensor, w: Tensor, pw: PreparedOperand,
+                  cfg: TFConfig = DEFAULT) -> Tensor:
+    """:func:`linear` with the weight's cache entry ``pw =
+    prepare_weight(w, cfg)`` built beforehand (once per optimizer step,
+    models/common.build_weight_cache). Gradients flow to ``w``; ``pw``
+    gets none."""
+    if w.ndim != 2:
+        raise ValueError(f"w must be 2-D, got {tuple(w.shape)}")
+    lead = x.shape[:-1]
+    y = _LinearCached.apply(x.reshape(-1, x.shape[-1]), w, pw.scale, pw.q.q,
+                            pw.q.scale, cfg)
     return y.reshape(*lead, w.shape[-1])

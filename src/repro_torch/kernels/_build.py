@@ -37,10 +37,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "timefloats_matmul": {
         # qx, sx, qw, sw, out, C, M, N, adc, fs, levels, step, stream
         "tf_matmul": [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P]},
+    "timefloats_matmul_transposed": {
+        # qg, sg, qw, sw, out, D, M, C, stream
+        "tf_matmul_t": [_P] * 5 + [_I] * 3 + [_P]},
     "sampling": {
         # lg, noise, temps, out, S, V, stream
         "sample_tokens": [_P] * 4 + [_I] * 2 + [_P]},
 }
+SOURCES = tuple(SIGNATURES)  # every csrc/<name>.cu, built together
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

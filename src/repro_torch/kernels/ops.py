@@ -1,11 +1,14 @@
-"""Public entry points of the TimeFloats matmul kernel (port of
-``repro.kernels.ops``, forward only).
+"""Public entry points of the TimeFloats matmul kernels (port of
+``repro.kernels.ops``).
 
 ``timefloats_matmul(x, w, cfg)`` is what ``core.timefloats.matmul`` calls in
-``mode="pallas"``: it quantizes both operands, pads them to the CUDA
-kernel's tile (M to 8 or 64 rows, N to 128 columns; pad blocks carry scale 1
-and zero planes, so they contribute nothing), runs K1 and slices the result
-back.
+``mode="pallas"``: it quantizes both operands, pads them to K1's tile (M to
+8 or 64 rows, N to 128 columns; pad blocks carry scale 1 and zero planes,
+so they contribute nothing), runs K1 and slices the result back.
+``quantized_matmul`` does the same on operands already quantized (the
+training path's cache entries). ``timefloats_matmul_transposed(g, qw,
+k_dim, cfg)`` is the backward's dx: it quantizes only ``g``, along its
+contraction dim N, pads M, C and N, and runs K2 on the stored planes.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.timefloats import (DEFAULT, QuantizedOperand, TFConfig,
+                                         matmul_separable_transposed,
                                          quantize_input, quantize_weight)
 from repro_torch.kernels import timefloats_matmul as kernel_mod
 
@@ -42,11 +46,45 @@ def padded_operands(qx: QuantizedOperand, qw: QuantizedOperand
             _pad_to(qw.scale, (1, bn), pad_value=1.0).contiguous())
 
 
+def quantized_matmul(qx: QuantizedOperand, qw: QuantizedOperand,
+                     cfg: TFConfig = DEFAULT) -> torch.Tensor:
+    """K1 on quantized operands; returns the padded (M', N') product."""
+    return kernel_mod.timefloats_matmul_quantized(*padded_operands(qx, qw),
+                                                  cfg=cfg)
+
+
 def timefloats_matmul(x: torch.Tensor, w: torch.Tensor,
                       cfg: TFConfig = DEFAULT) -> torch.Tensor:
     """f32/bf16 (M,K) @ (K,N) through the TimeFloats kernel; f32 out."""
     m_dim, n_dim = x.shape[0], w.shape[1]
-    y = kernel_mod.timefloats_matmul_quantized(
-        *padded_operands(quantize_input(x, cfg), quantize_weight(w, cfg)),
-        cfg=cfg)
+    y = quantized_matmul(quantize_input(x, cfg), quantize_weight(w, cfg), cfg)
     return y[:m_dim, :n_dim]
+
+
+def padded_transposed_operands(qg: QuantizedOperand, qw: QuantizedOperand
+                               ) -> tuple[torch.Tensor, ...]:
+    """(qg, sg, qw, sw) padded to K2's tile: M to ``TILE_M_T`` rows, C to
+    ``PLANES_T`` planes, and qw's N to the D*64 columns g was chunked into;
+    pad blocks with zero planes and scale 1."""
+    blk = qg.q.shape[2]
+    bm, bc = kernel_mod.TILE_M_T, kernel_mod.PLANES_T
+    return (_pad_to(qg.q, (1, bm, 1)).contiguous(),
+            _pad_to(qg.scale, (1, bm), pad_value=1.0).contiguous(),
+            _pad_to(qw.q, (bc, 1, blk)).contiguous(),
+            _pad_to(qw.scale, (bc, blk), pad_value=1.0).contiguous())
+
+
+def timefloats_matmul_transposed(g: torch.Tensor, qw: QuantizedOperand,
+                                 k_dim: int, cfg: TFConfig = DEFAULT
+                                 ) -> torch.Tensor:
+    """dx = g @ W^T, (M,N) against the stored (C,64,N) planes, through K2:
+    no re-quantization of the weight and no materialized W^T (DESIGN.md
+    §3). With an ADC configured it takes the reference path, as the
+    reference does: transposed reads are ADC-free, so the numbers agree,
+    and the kernel rejects ``adc_bits``."""
+    if cfg.adc_bits is not None:
+        return matmul_separable_transposed(g, qw, k_dim, cfg)
+    m_dim = g.shape[0]
+    dx = kernel_mod.timefloats_matmul_transposed_quantized(
+        *padded_transposed_operands(quantize_input(g, cfg), qw), cfg=cfg)
+    return dx[:m_dim, :k_dim]

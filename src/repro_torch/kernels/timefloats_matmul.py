@@ -1,14 +1,18 @@
-"""K1: the TimeFloats block-aligned int8 MAC (hand-written CUDA kernel).
+"""The TimeFloats matmul kernels, hand-written in CUDA.
 
-Replaces the Pallas TPU kernel ``_kernel`` / ``timefloats_matmul_quantized``
-of ``repro.kernels.timefloats_matmul``. The CUDA source is
-``csrc/timefloats_matmul.cu``; its header says what bounds it on the card
-and how the design keeps it bitwise equal to the spec.
+K1, the block-aligned int8 MAC, replaces the Pallas TPU kernel ``_kernel``
+/ ``timefloats_matmul_quantized`` of ``repro.kernels.timefloats_matmul``;
+its source is ``csrc/timefloats_matmul.cu``. K2, the transposed read
+dx = g @ W^T of the stored weight planes, replaces ``_kernel_transposed`` /
+``timefloats_matmul_transposed_quantized``; its source is
+``csrc/timefloats_matmul_transposed.cu``. Each source's header says what
+bounds the kernel on the card and how its design meets its contract.
 
-Beside the kernel: its plain PyTorch version (the chunk-ordered
-``matmul_from_quantized`` via kernels/ref.py, which the CPU tests run and
-``chip_smoke.py`` holds the kernel against) and a launch counter,
-``timefloats_matmul_quantized.launches``, bumped once per kernel launch.
+Beside each kernel: its plain PyTorch version, which the CPU tests run and
+``chip_smoke.py`` holds the kernel against (K1's is the chunk-ordered
+``matmul_from_quantized`` via kernels/ref.py, K2's a dequantize and one f32
+matmul), and a launch counter, ``<wrapper>.launches``, bumped once per
+kernel launch.
 """
 from __future__ import annotations
 
@@ -18,8 +22,10 @@ from repro_torch.core.timefloats import (QuantizedOperand, TFConfig,
                                          adc_constants)
 from repro_torch.kernels import _build, dispatch, ref
 
-BLOCK = 64       # crossbar height the kernel is written for
-TILE_N = 128     # output columns per CUDA block
+BLOCK = 64       # crossbar height the kernels are written for
+TILE_N = 128     # K1: output columns per CUDA block
+TILE_M_T = 64    # K2: output rows per CUDA block
+PLANES_T = 2     # K2: weight planes (64 output columns each) per CUDA block
 
 
 def tile_m(m: int) -> int:
@@ -88,3 +94,82 @@ def timefloats_matmul_quantized(qx: torch.Tensor, sx: torch.Tensor,
 
 
 timefloats_matmul_quantized.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: the transposed read (DESIGN.md §3).
+# ---------------------------------------------------------------------------
+
+
+def dequantize_transposed(qg: torch.Tensor, sg: torch.Tensor,
+                          qw: torch.Tensor, sw: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's operands as f32 values: gd (M, D*64) and wd (C*64, N). Exact:
+    5-bit significands times power-of-two scales."""
+    d, m, blk = qg.shape
+    c, bk, n = qw.shape
+    gd = (qg.to(torch.float32) * sg[:, :, None]).transpose(0, 1)
+    wd = qw.to(torch.float32) * sw[:, None, :]
+    return gd.reshape(m, d * blk), wd.reshape(c * bk, n)
+
+
+def timefloats_matmul_transposed_plain(qg: torch.Tensor, sg: torch.Tensor,
+                                       qw: torch.Tensor, sw: torch.Tensor
+                                       ) -> torch.Tensor:
+    """K2's plain version: dequantize both operands, then one f32 matmul
+    contracting N (the reference's ``matmul_separable_transposed`` on the
+    same planes)."""
+    gd, wd = dequantize_transposed(qg, sg, qw, sw)
+    return gd @ wd.T
+
+
+def _check_t(qg, sg, qw, sw, cfg: TFConfig) -> None:
+    if cfg.adc_bits is not None:
+        raise ValueError("transposed reads are modeled ADC-free (DESIGN.md "
+                         "§3); the ADC applies to forward reads only")
+    d, m, blk = qg.shape
+    c, bk, n = qw.shape
+    if blk != BLOCK or bk != BLOCK or n != d * BLOCK:
+        raise ValueError(f"operand shapes {tuple(qg.shape)} x "
+                         f"{tuple(qw.shape)}: need (D,M,{BLOCK}) x "
+                         f"(C,{BLOCK},D*{BLOCK})")
+    if sg.shape != (d, m) or sw.shape != (c, n):
+        raise ValueError(f"scale shapes {tuple(sg.shape)}, {tuple(sw.shape)}"
+                         f" do not match (D,M)=({d},{m}), (C,N)=({c},{n})")
+    if qg.dtype != torch.int8 or qw.dtype != torch.int8:
+        raise TypeError("qg and qw must be int8")
+    if sg.dtype != torch.float32 or sw.dtype != torch.float32:
+        raise TypeError("sg and sw must be float32")
+    if m % TILE_M_T or c % PLANES_T:
+        raise ValueError(f"M={m}, C={c}: pad M to {TILE_M_T} and C to "
+                         f"{PLANES_T} first (kernels/ops.py)")
+    for t in (qg, sg, qw, sw):
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+
+
+def timefloats_matmul_transposed_quantized(qg: torch.Tensor, sg: torch.Tensor,
+                                           qw: torch.Tensor, sw: torch.Tensor,
+                                           *, cfg: TFConfig) -> torch.Tensor:
+    """(D,M,64) int8 gradient planes x the stored (C,64,N=D*64) weight
+    planes, with (D,M), (C,N) f32 scales -> dx (M, C*64) f32. Operands must
+    be padded (M to ``TILE_M_T``, C to ``PLANES_T``; kernels/ops.py does
+    it). A CUDA tensor launches K2 (or raises); a CPU tensor runs the plain
+    version."""
+    _check_t(qg, sg, qw, sw, cfg)
+    if not dispatch.use_kernel(qg):
+        return timefloats_matmul_transposed_plain(qg, sg, qw, sw)
+    if not all(t.is_cuda and t.device == qg.device for t in (sg, qw, sw)):
+        raise ValueError("all operands must lie on the same CUDA device")
+    d, m, _ = qg.shape
+    c = qw.shape[0]
+    out = torch.empty((m, c * BLOCK), dtype=torch.float32, device=qg.device)
+    err = _build.load("timefloats_matmul_transposed").tf_matmul_t(
+        qg.data_ptr(), sg.data_ptr(), qw.data_ptr(), sw.data_ptr(),
+        out.data_ptr(), d, m, c, _build.stream_ptr())
+    _build.check(err, "timefloats_matmul_transposed")
+    timefloats_matmul_transposed_quantized.launches += 1
+    return out
+
+
+timefloats_matmul_transposed_quantized.launches = 0

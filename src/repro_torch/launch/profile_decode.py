@@ -11,7 +11,8 @@ and ``--steps`` more under ``torch.profiler``. It prints:
   (all threads), so their ratio says how busy the host was;
 - with the profiler on, wall ms per step;
 - device ms and kernel launches per step in all, the device's busy share
-  of the wall time, and the share taken by the hand kernels K1 and K3;
+  of the wall time, and the shares of the hand kernels (K1, K3; K2 runs
+  only in training);
 - the top operators by the device time of the kernels they launch
   themselves, and the top kernels by name;
 - the elapsed ms (CUDA events) of prescaling and quantizing every weight
@@ -40,7 +41,8 @@ from repro_torch.models import model as model_lib
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.request import Request
 
-HAND_KERNELS = {"K1": "tf_matmul_kernel", "K3": "sample_kernel"}
+HAND_KERNELS = {"K1": "tf_matmul_kernel", "K2": "tf_matmul_t_kernel",
+                "K3": "sample_kernel"}
 
 
 def step_weights(params) -> list:
@@ -104,16 +106,22 @@ def profile_steps(params, cfg, *, steps: int, seed: int, top: int) -> None:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0) / steps
 
+    report(prof, steps=steps, wall_ms=wall_ms, what="decode step", top=top)
+
+
+def report(prof, *, steps: int, wall_ms: float, what: str, top: int) -> None:
+    """Print a profile's device ms, busy share and launches per step, the
+    hand kernels' shares, and the top operators and kernels."""
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     ops = [e for e in events if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if dev_ms <= 0:
-        raise SystemExit("profile_decode: the profiler recorded no device "
-                         "time; time the step with CUDA events instead")
+        raise SystemExit("profile: the profiler recorded no device time; "
+                         "time the step with CUDA events instead")
     launches = sum(e.count for e in kernels) / steps
-    print(f"decode step, profiler on: wall_ms={wall_ms:.3f} "
+    print(f"{what}, profiler on: wall_ms={wall_ms:.3f} "
           f"device_ms={dev_ms:.3f} "
           f"busy_share={dev_ms / wall_ms:.4f} launches={launches:g}",
           flush=True)

@@ -1,0 +1,101 @@
+"""Training launcher (port of ``repro.launch.train``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+        --batch 4 --seq 256 --steps 3 --ckpt-dir /path/to/ckpt
+
+Trains on one device (``--device``, default ``cuda``) with TimeFloats
+arithmetic in ``--tf-mode`` (default ``pallas``: every forward projection
+through the K1 kernel, every dx through K2; on a CPU tensor each kernel's
+plain version runs instead). Fault tolerance comes from train/trainer.py:
+atomic keep-N checkpoints, auto-resume, the straggler watchdog and
+restartable data. The reference's ``--mesh``, ``--fake-devices``,
+``--trace-out`` and ``--metrics-out`` wait for the parallel and
+observability slices.
+"""
+import argparse
+import dataclasses
+import sys
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--quant", default="timefloats",
+                    choices=["timefloats", "none"])
+    ap.add_argument("--tf-mode", default="pallas",
+                    choices=["pallas", "separable"])
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["sgd", "adamw", "adafactor"])
+    ap.add_argument("--insitu", action="store_true",
+                    help="paper-faithful E4M4 in-situ weight updates")
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced (smoke) config of the chosen arch")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=200)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.core.timefloats import TFConfig
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.train import step as tsl
+    from repro_torch.train.trainer import LoopConfig, run_loop
+
+    # Dequantized f32 matmuls (dW, the plain kernels) are exact only
+    # without TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_for_smoke(cfg)
+    cfg = dataclasses.replace(cfg, quant=args.quant,
+                              tf=dataclasses.replace(cfg.tf,
+                                                     mode=args.tf_mode))
+    tcfg = tsl.TrainConfig(
+        accum=args.accum,
+        optimizer=OptimizerConfig(
+            name=args.optimizer, lr=args.lr, total_steps=args.steps,
+            insitu=TFConfig() if args.insitu else None))
+    device = torch.device(args.device)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    print(f"device {where}; arch={args.arch} quant={args.quant} "
+          f"tf_mode={args.tf_mode} layers={cfg.n_layers} "
+          f"d_model={cfg.d_model} vocab={cfg.vocab_size}", flush=True)
+
+    state = tsl.init_state(cfg, tcfg, args.seed, device)
+    pipe = DataPipeline(cfg, batch=args.batch, seq=args.seq, seed=args.seed,
+                        kind="markov" if cfg.vocab_size <= 65536 else "lm",
+                        device=device)
+    step_fn = tsl.make_train_step(cfg, tcfg)
+
+    def on_metrics(step, m):
+        print(f"step {step:5d} loss {m['loss']:.4f} gnorm "
+              f"{m['grad_norm']:.2f} {m['step_s']:.2f}s", flush=True)
+
+    loop = LoopConfig(total_steps=args.steps, log_every=args.log_every,
+                      ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
+    t0 = time.monotonic()
+    state, report = run_loop(state, step_fn, pipe.batch_at, loop,
+                             on_metrics=on_metrics)
+    last = report.losses[-1] if report.losses else float("nan")
+    print(f"done: steps={report.steps_run} resumed_from="
+          f"{report.resumed_from} stragglers={report.straggler_events} "
+          f"final_loss={last:.4f} "
+          f"wall={time.monotonic() - t0:.1f}s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,11 @@
-"""GQA attention over a dense KV cache (port of ``repro.models.attention``,
-the dense-cache decode branch).
+"""GQA attention (port of ``repro.models.attention``): the dense-cache
+decode branch and the full-sequence blockwise branch.
 
 Serving never runs the blockwise (flash-style) path: prefill writes its
 K/V slab into the cache and attends through :func:`decode_attention` over
 the whole ``max_len`` extent with ragged masks, exactly as the reference
-does. ``blockwise_attention`` and the paged branches come with later slices.
+does. Training (no cache) runs :func:`blockwise_attention`. The paged
+branches come with a later slice.
 
 The cache is updated in place (``cache_update``): the reference returns a
 new cache, but every caller here drops the old one, and in-place writes
@@ -87,6 +88,72 @@ def decode_attention(
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv)
 
 
+def _pad_seq(a: Tensor, mult: int) -> Tensor:
+    pad = (-a.shape[1]) % mult
+    if pad == 0:
+        return a
+    widths = [0, 0] * (a.ndim - 2) + [0, pad]  # F.pad lists the last dim first
+    return torch.nn.functional.pad(a, widths)
+
+
+def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, mask: MaskSpec, *,
+                        q_block: int, kv_block: int, q_offset: int = 0
+                        ) -> Tensor:
+    """Online-softmax attention over (q block, kv block) tiles; positions
+    are ``q_offset + arange`` for q and ``arange`` for kv. q (B, Sq, H, D),
+    k/v (B, Skv, Hkv, D). Blocks a causal or windowed mask hides entirely
+    are skipped, as in the reference (whose kv loop is a scan; here it is a
+    Python loop over the same block list)."""
+    b, sq_in, h, d = q.shape
+    dv = v.shape[-1]
+    qb = min(q_block, sq_in)
+    kvb = min(kv_block, k.shape[1])
+    # Padded kv sits at positions past every real query, so the causal
+    # mask excludes it; padded q rows are sliced off.
+    q, k, v = _pad_seq(q, qb), _pad_seq(k, kvb), _pad_seq(v, kvb)
+    sq, skv, hkv = q.shape[1], k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qr = q.reshape(b, sq // qb, qb, hkv, g, d).permute(1, 0, 3, 4, 2, 5)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    outs = []
+    for i in range(sq // qb):
+        qi = qr[i].to(torch.float32)  # (B, Hkv, G, qb, D)
+        q_pos = q_offset + i * qb + torch.arange(qb, device=q.device)
+        hi = min(skv, q_offset + (i + 1) * qb) if mask.causal else skv
+        j_max = -(-hi // kvb)
+        j_min = 0
+        if mask.window is not None:
+            j_min = max(0, q_offset + i * qb - mask.window + 1) // kvb
+        blocks = list(range(j_min, j_max))
+        if mask.prefix_len and j_min > 0:
+            n_prefix = -(-mask.prefix_len // kvb)
+            blocks = list(range(0, min(n_prefix, j_min))) + blocks
+        m = torch.full((b, hkv, g, qb), NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, hkv, g, qb), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, hkv, g, qb, dv), dtype=torch.float32,
+                          device=q.device)
+        for j in blocks:
+            kb = kf[:, j * kvb:(j + 1) * kvb]
+            vb = vf[:, j * kvb:(j + 1) * kvb]
+            kv_pos = j * kvb + torch.arange(kvb, device=q.device)
+            s = torch.einsum("bkgqd,bjkd->bkgqj", qi, kb) * scale
+            ok = mask_allowed(q_pos[:, None], kv_pos[None, :], mask)
+            s = torch.where(ok, s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqj,bjkd->bkgqd",
+                                                       p, vb)
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    out = torch.stack(outs, dim=0)  # (nq, B, Hkv, G, qb, Dv)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, dv)
+    return out[:, :sq_in]
+
+
 def cache_update(cache: KVCache, k_new: Tensor, v_new: Tensor,
                  positions: Tensor) -> KVCache:
     """Write (B, Sq, Hkv, D) at per-row start ``positions`` (B,), in place.
@@ -131,11 +198,13 @@ def head_mask(cfg: ModelConfig, device=None) -> Optional[Tensor]:
 
 
 def attention_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
-                    *, mask: MaskSpec, positions: Tensor, cache: KVCache,
-                    lengths: Tensor) -> tuple[Tensor, KVCache]:
-    """Self-attention through the dense cache: project, qk-norm, rope,
-    write the new K/V at ``positions[:, 0]``, attend over the cache.
-    ``lengths`` (B,) are the post-update cache lengths."""
+                    *, mask: MaskSpec, positions: Tensor,
+                    cache: Optional[KVCache], lengths: Optional[Tensor]
+                    ) -> tuple[Tensor, Optional[KVCache]]:
+    """Self-attention: project, qk-norm, rope, then either write the new
+    K/V at ``positions[:, 0]`` and attend over the cache (``lengths`` (B,)
+    are the post-update cache lengths), or, with no cache, attend over the
+    sequence itself blockwise (training)."""
     q = dense(x, params["wq"], cfg)   # (B, S, H, hd)
     k = dense(x, params["wk"], cfg)
     v = dense(x, params["wv"], cfg)
@@ -145,8 +214,12 @@ def attention_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
     if cfg.pos_variant == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    cache = cache_update(cache, k, v, positions[:, 0])
-    out = decode_attention(q, cache.k, cache.v, positions, lengths, mask)
+    if cache is not None:
+        cache = cache_update(cache, k, v, positions[:, 0])
+        out = decode_attention(q, cache.k, cache.v, positions, lengths, mask)
+    else:
+        out = blockwise_attention(q, k, v, mask, q_block=cfg.q_block,
+                                  kv_block=cfg.kv_block)
     hm = head_mask(cfg, x.device)
     if hm is not None:
         out = out * hm[None, None, :, None]

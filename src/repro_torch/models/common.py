@@ -1,22 +1,26 @@
 """Shared model machinery (port of ``repro.models.common``, the parts the
-dense serving path runs): parameter specs and their initialization, the
-quantization-dispatched dense layer, norms, rotary embeddings and the MLP.
+dense family runs): parameter specs and their initialization, the
+quantization-dispatched dense layer with its per-step weight cache, norms,
+rotary embeddings and the MLP.
 
 Weights keep the reference's layout: a projection weight is (K, ...) and is
 contracted over its leading dim(s) exactly as ``dense``/``dense_in`` do
-there, because ``quantize_weight`` chunks along K. There is no weight cache:
-the reference's serving path quantizes every weight per call too.
+there, because ``quantize_weight`` chunks along K. The serving path builds
+no weight cache and quantizes every weight per call, as the reference's
+does.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch import tree as tree_lib
 from repro_torch.core import timefloats
 
 Tensor = torch.Tensor
@@ -64,18 +68,151 @@ def init_params(specs: Tree, gen: torch.Generator, dtype: torch.dtype,
 # ---------------------------------------------------------------------------
 # The dense layer — the paper's integration point. Every projection goes
 # through here; cfg.quant selects plain vs TimeFloats arithmetic.
+#
+# Weight cache (DESIGN.md §3): train/step.py quantizes every dense-eligible
+# weight once per optimizer step (build_weight_cache, outside autograd) and
+# installs the entries for the loss (weight_cache_scope). dense()/dense_in()
+# find an entry by the identity of the parameter tensor they are handed; a
+# hit routes through timefloats.linear_cached (the stored planes serve the
+# forward AND the dx read), a miss through timefloats.linear. The reference
+# scans stacked layers and threads a stacked cache through the scan; the
+# port loops over per-layer dicts, so one flat table covers every layer.
+#
+# Preparation mirrors how each consumer reshapes its weight, a per-leaf
+# rule:
+#   dense    — w.reshape(w.shape[0], -1)   (wq/wk/wv, MLP, lm_head)
+#   dense_in — w.reshape(-1, w.shape[-1])  (wo: contract leading dims)
+# plus the tied head, the transposed read of the embedding table, prepared
+# from embed.T and keyed on the table. Excluded: <2-D leaves, non-float,
+# embeddings/meta tables, the MoE router, conv kernels.
 # ---------------------------------------------------------------------------
 
+_EXPERT_LEAVES = ("wg", "wu", "wd")  # MoE expert stacks (not ported yet)
+_DENSE_IN_LEAVES = ("wo",)           # consumed via dense_in
 
-def dense(x: Tensor, w: Tensor, cfg: ModelConfig) -> Tensor:
+
+def _leaf_name(path) -> str:
+    """Last string key on a tree path (list indices skipped)."""
+    for p in reversed(path):
+        if isinstance(p, str):
+            return p
+    return ""
+
+
+def leaf_rule_with_reason(path, ndim: int, dtype) -> tuple:
+    """(rule, reason) for a leaf consumed at ``ndim`` dims: ``rule`` is
+    "dense"/"dense_in"/"expert", or None with the reason the leaf is not
+    dense-eligible."""
+    if ndim < 2:
+        return None, "sub-2D (bias/scale vectors are digital)"
+    if not dtype.is_floating_point:
+        return None, "non-float"
+    name = _leaf_name(path)
+    if any(t in name for t in ("embed", "meta")):
+        return None, "embedding/meta table (gather-read, not a matmul)"
+    if name == "router":
+        return None, "f32 MoE router (precision-critical plain matmul)"
+    if name.startswith("conv"):
+        return None, "depthwise conv kernel (not a dense() operand)"
+    if name in _EXPERT_LEAVES and ndim == 3:
+        return "expert", ""
+    if name in _DENSE_IN_LEAVES:
+        return "dense_in", ""
+    return "dense", ""
+
+
+def _leaf_rule(path, ndim: int, dtype) -> Optional[str]:
+    return leaf_rule_with_reason(path, ndim, dtype)[0]
+
+
+def _prepare_by_rule(leaf: Tensor, rule: str, cfg: ModelConfig
+                     ) -> timefloats.PreparedOperand:
+    """One leaf -> PreparedOperand under its consumer's reshape."""
+    if rule == "dense":
+        return timefloats.prepare_weight(leaf.reshape(leaf.shape[0], -1),
+                                         cfg.tf)
+    if rule == "dense_in":
+        return timefloats.prepare_weight(leaf.reshape(-1, leaf.shape[-1]),
+                                         cfg.tf)
+    raise NotImplementedError(f"weight-cache rule {rule!r} is not ported yet")
+
+
+# {id(param): (param, PreparedOperand)}: the stored reference keeps the id
+# valid and guards against its reuse.
+WeightCache = Dict[int, tuple]
+
+_ACTIVE_WEIGHT_CACHE: Optional[WeightCache] = None
+
+
+@torch.no_grad()
+def build_weight_cache(params: Tree, cfg: ModelConfig
+                       ) -> Optional[WeightCache]:
+    """Quantize every dense-eligible weight of ``params`` once (per
+    optimizer step), keyed by the tensors of ``params`` themselves. None
+    when TimeFloats or its cache is off."""
+    if cfg.quant != "timefloats" or not cfg.tf.cache:
+        return None
+    cache: WeightCache = {}
+    for path, leaf in tree_lib.leaves_with_path(params):
+        rule = _leaf_rule(path, leaf.ndim, leaf.dtype)
+        if rule:
+            cache[id(leaf)] = (leaf, _prepare_by_rule(leaf, rule, cfg))
+    if cfg.tie_embeddings and "embed" in params:
+        emb = params["embed"]
+        cache[id(emb)] = (emb, timefloats.prepare_weight(emb.T, cfg.tf))
+    return cache or None
+
+
+@contextlib.contextmanager
+def weight_cache_scope(cache: Optional[WeightCache]) -> Iterator[None]:
+    """Install ``cache`` for dense()/dense_in() inside the block; entries
+    merge over an enclosing scope's."""
+    global _ACTIVE_WEIGHT_CACHE
+    prev = _ACTIVE_WEIGHT_CACHE
+    if cache:
+        _ACTIVE_WEIGHT_CACHE = {**(prev or {}), **cache}
+    try:
+        yield
+    finally:
+        _ACTIVE_WEIGHT_CACHE = prev
+
+
+def active_weight_cache() -> Optional[WeightCache]:
+    """The installed table, for code that must reinstall it later (the
+    recomputation of a checkpointed block runs outside the loss's scope)."""
+    return _ACTIVE_WEIGHT_CACHE
+
+
+def cached_weight(w: Tensor) -> Optional[timefloats.PreparedOperand]:
+    """The installed entry for parameter ``w`` (by identity), or None.
+    Callers consume it under the rule it was built with: dense() looks up
+    the leaves it reshapes itself, dense_in() and the tied head look up
+    their leaves before reshaping."""
+    if _ACTIVE_WEIGHT_CACHE is None:
+        return None
+    ent = _ACTIVE_WEIGHT_CACHE.get(id(w))
+    if ent is None or ent[0] is not w:
+        return None
+    return ent[1]
+
+
+def dense(x: Tensor, w: Tensor, cfg: ModelConfig,
+          pw: Optional[timefloats.PreparedOperand] = None) -> Tensor:
     """y[..., n] = x[..., k] @ w[k, n]; trailing dims of ``w`` are
-    flattened into the output and restored (e.g. (d, H, hd))."""
+    flattened into the output and restored (e.g. (d, H, hd)). ``pw`` is an
+    explicit cache entry for callers that reshape ``w`` before this point;
+    it must describe ``w.reshape(w.shape[0], -1)``."""
     k = w.shape[0]
     w2 = w.reshape(k, -1)
     out_shape = x.shape[:-1] + w.shape[1:]
     act = cfg.activation_dtype
     if cfg.quant == "timefloats":
-        y = timefloats.linear(x, w2, cfg.tf)
+        if pw is None:
+            pw = cached_weight(w)
+        if pw is not None:
+            y = timefloats.linear_cached(x, w2, pw, cfg.tf)
+        else:
+            y = timefloats.linear(x, w2, cfg.tf)
     else:
         y = x.to(act) @ w2.to(act)
     return y.reshape(out_shape).to(act)
@@ -83,11 +220,13 @@ def dense(x: Tensor, w: Tensor, cfg: ModelConfig) -> Tensor:
 
 def dense_in(x: Tensor, w: Tensor, cfg: ModelConfig) -> Tensor:
     """Contraction over multiple leading dims of w (e.g. wo: (H, hd, d)).
-    x (..., H, hd) @ w (H, hd, d) -> (..., d)."""
+    x (..., H, hd) @ w (H, hd, d) -> (..., d). The cache is consulted on
+    the original leaf, before the reshape."""
     n_in = w.ndim - 1
     k = math.prod(w.shape[:n_in])
     x2 = x.reshape(*x.shape[: x.ndim - n_in], k)
-    return dense(x2, w.reshape(k, w.shape[-1]), cfg)
+    pw = cached_weight(w) if cfg.quant == "timefloats" else None
+    return dense(x2, w.reshape(k, w.shape[-1]), cfg, pw=pw)
 
 
 # ---------------------------------------------------------------------------
@@ -167,10 +306,17 @@ def _gelu(x: Tensor) -> Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default form
 
 
+def _silu(x: Tensor) -> Tensor:
+    """``x * (1 / (1 + exp(-x)))`` op by op, as ``jax.nn.silu`` lowers: in
+    bf16 each op rounds, so ``F.silu``'s single rounding would differ from
+    the reference (tests/test_torch_train.py pins the bf16 MLP bitwise)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig
               ) -> Tensor:
     if cfg.mlp_variant in ("swiglu", "geglu"):
-        act = F.silu if cfg.mlp_variant == "swiglu" else _gelu
+        act = _silu if cfg.mlp_variant == "swiglu" else _gelu
         g = act(dense(x, params["w_gate"], cfg))
         u = dense(x, params["w_up"], cfg)
         return dense(g * u, params["w_down"], cfg)

@@ -1,25 +1,29 @@
 """LMModel, dense family (port of ``repro.models.model``): parameters, the
-layer loop, the slot cache and the serving steps ``prefill`` /
-``decode_step`` / ``prefill_into_slots``.
+layer loop, the full-sequence training forward and loss, the slot cache and
+the serving steps ``prefill`` / ``decode_step`` / ``prefill_into_slots``.
 
 The reference stacks layers and scans them; here the parameters hold a list
-of per-layer dicts (``params["layers"]``) and a Python loop walks it. Other
-families (MoE, MLA, SSM, hybrid, audio, VLM) come with later slices.
+of per-layer dicts (``params["layers"]``) and a Python loop walks it. Its
+``remat="full"`` (``jax.checkpoint`` of the scan body) becomes
+``torch.utils.checkpoint`` around each block. Other families (MoE, MLA,
+SSM, hybrid, audio, VLM) come with later slices.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import common
 from repro_torch.models.attention import KVCache, MaskSpec
-from repro_torch.models.common import (ParamSpec, init_params, mlp_apply,
-                                       mlp_specs, norm_apply, norm_specs)
-from repro_torch.models.common import dense
+from repro_torch.models.common import (ParamSpec, dense, init_params,
+                                       mlp_apply, mlp_specs, norm_apply,
+                                       norm_specs)
 
 Tensor = torch.Tensor
 Tree = Any
@@ -44,8 +48,9 @@ def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def block_apply(params: Dict[str, Any], x: Tensor, cfg: ModelConfig, *,
-                positions: Tensor, cache: KVCache, lengths: Tensor
-                ) -> tuple[Tensor, KVCache]:
+                positions: Tensor, cache: Optional[KVCache],
+                lengths: Optional[Tensor]
+                ) -> tuple[Tensor, Optional[KVCache]]:
     h = norm_apply(params["norm1"], x, cfg)
     y, cache = attn_mod.attention_apply(
         params["mixer"], h, cfg, mask=default_mask(cfg), positions=positions,
@@ -84,9 +89,13 @@ def embed_tokens(params: Tree, tokens: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def _head(params: Tree, x: Tensor, cfg: ModelConfig) -> Tensor:
-    """Logits in f32; the tied head is the transposed read of the table."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return dense(x, w, cfg).to(torch.float32)
+    """Logits in f32. The tied head is the transposed read of the table;
+    its cache entry (prepared from embed.T) is keyed on the table."""
+    if cfg.tie_embeddings:
+        return dense(x, params["embed"].T, cfg,
+                     pw=common.cached_weight(params["embed"])
+                     ).to(torch.float32)
+    return dense(x, params["lm_head"], cfg).to(torch.float32)
 
 
 def _run_layers(params: Tree, x: Tensor, cfg: ModelConfig, *,
@@ -98,6 +107,74 @@ def _run_layers(params: Tree, x: Tensor, cfg: ModelConfig, *,
                             lengths=lengths)
         new.append(lc)
     return x, new
+
+
+def _sequence_layers(params: Tree, x: Tensor, cfg: ModelConfig,
+                     positions: Tensor, remat: str) -> Tensor:
+    """The layer loop of the full-sequence forward. With ``remat="full"``
+    each block is checkpointed: its activations are dropped after the
+    forward and recomputed in the backward. The recomputation runs after
+    the loss has left its weight-cache scope, so each block reinstalls the
+    table it saw in the forward."""
+    if remat == "dots":
+        raise NotImplementedError('remat="dots" is not ported yet')
+    table = common.active_weight_cache()
+
+    def block(lp, h):
+        with common.weight_cache_scope(table):
+            return block_apply(lp, h, cfg, positions=positions, cache=None,
+                               lengths=None)[0]
+
+    for lp in params["layers"]:
+        if remat == "full":
+            x = torch.utils.checkpoint.checkpoint(
+                block, lp, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block(lp, x)
+    return x
+
+
+def forward(params: Tree, batch: Dict[str, Tensor], cfg: ModelConfig, *,
+            train: bool = True) -> tuple[Tensor, Dict[str, Tensor]]:
+    """Full-sequence forward -> (logits (B, S, V) f32, aux). ``train``
+    applies ``cfg.remat`` to the layer loop."""
+    _require_dense(cfg)
+    x = embed_tokens(params, batch["tokens"], cfg)
+    b, s = x.shape[0], x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    x = _sequence_layers(params, x, cfg, positions,
+                         cfg.remat if train else "none")
+    x = norm_apply(params["final_norm"], x, cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"lb_loss": zero, "z_loss": zero, "dropped_frac": zero}
+    return _head(params, x, cfg), aux
+
+
+def _nll(logits: Tensor, labels: Tensor) -> Tensor:
+    """-log p[labels]: a max-shifted log-sum-exp minus the label's logit.
+    The reference extracts the label logit with a masked sum over the
+    vocab (for sharding); a gather picks the same value."""
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    s = logits - m
+    lse = torch.log(torch.exp(s).sum(dim=-1))
+    label = torch.gather(s, -1, labels[..., None].to(torch.int64))[..., 0]
+    return lse - label
+
+
+def loss_fn(params: Tree, batch: Dict[str, Tensor], cfg: ModelConfig
+            ) -> tuple[Tensor, Dict[str, Tensor]]:
+    """Masked mean next-token cross entropy (plus the MoE aux terms, zero
+    for the dense family), and the reference's metrics."""
+    logits, aux = forward(params, batch, cfg, train=True)
+    mask = batch["mask"].to(torch.float32)
+    nll = _nll(logits, batch["labels"])
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = (nll * mask).sum() / denom
+    loss = ce + aux["lb_loss"] + aux["z_loss"]
+    metrics = {"loss": loss, "ce": ce, "lb_loss": aux["lb_loss"],
+               "z_loss": aux["z_loss"], "dropped_frac": aux["dropped_frac"],
+               "tokens": denom}
+    return loss, metrics
 
 
 class ModelCache(NamedTuple):

@@ -1,0 +1,97 @@
+"""Training loop with the fault-tolerance machinery (port of
+``repro.train.trainer``):
+
+- auto-resume from the latest checkpoint;
+- periodic and final checkpoints (atomic, keep-N, async);
+- a step watchdog: a step slower than ``straggler_factor`` times the running
+  median is counted as a straggler event and triggers an emergency
+  checkpoint;
+- deterministic data: batch = f(seed, step), so a restart replays the same
+  stream.
+
+The reference's observability hooks (tracer, metrics registry, health
+monitors) and its digital-twin ``hw_monitor`` wait for the port's
+observability and hw-twin slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.train.step import TrainState
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    total_steps: int = 100
+    log_every: int = 10
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
+    keep: int = 3
+    straggler_factor: float = 3.0
+    min_median_window: int = 5
+
+
+@dataclasses.dataclass
+class LoopReport:
+    steps_run: int
+    final_step: int
+    losses: List[float]
+    straggler_events: int
+    resumed_from: Optional[int]
+
+
+def run_loop(state: TrainState, train_step: Callable,
+             batch_fn: Callable[[int], Dict[str, torch.Tensor]],
+             cfg: LoopConfig, *,
+             on_metrics: Optional[Callable[[int, Dict[str, float]], None]]
+             = None) -> tuple[TrainState, LoopReport]:
+    mgr = (CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
+           if cfg.ckpt_dir else None)
+    resumed_from = None
+    if mgr is not None:
+        latest = mgr.latest_step()
+        if latest is not None:
+            state = mgr.restore(latest, state)
+            resumed_from = latest
+
+    losses: List[float] = []
+    durations: List[float] = []
+    stragglers = 0
+    start = int(state.step)
+    for step in range(start, cfg.total_steps):
+        batch = batch_fn(step)
+        t0 = time.monotonic()
+        state, metrics = train_step(state, batch)
+        loss = float(metrics["loss"])  # waits for the device: the step's end
+        dt = time.monotonic() - t0
+        losses.append(loss)
+
+        if len(durations) >= cfg.min_median_window:
+            med = statistics.median(durations)
+            if dt > cfg.straggler_factor * med:
+                stragglers += 1
+                if mgr is not None:  # emergency checkpoint
+                    mgr.save(step + 1, state, {"reason": "straggler",
+                                               "dt": dt, "median": med})
+        durations.append(dt)
+
+        if on_metrics and (step % cfg.log_every == 0
+                           or step == cfg.total_steps - 1):
+            on_metrics(step, dict({k: float(v) for k, v in metrics.items()},
+                                  step_s=dt))
+        if mgr is not None and (step + 1) % cfg.ckpt_every == 0:
+            mgr.save(step + 1, state)
+
+    if mgr is not None:
+        mgr.save(cfg.total_steps, state)
+        mgr.wait()
+    return state, LoopReport(steps_run=cfg.total_steps - start,
+                             final_step=int(state.step), losses=losses,
+                             straggler_events=stragglers,
+                             resumed_from=resumed_from)
