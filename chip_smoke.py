@@ -26,15 +26,41 @@ on any fault:
 5. K3      — fused sampling on (4, 151936) logits with injected exact ties,
              greedy and temperature rows sharing one noise tensor: bitwise;
              its bound counts noise only for the temperature rows.
-6. serve   — qwen3-0.6b at full width (28 layers, random weights from
+6. K6      — the page gather at the paged prefill shape, pool (129, 16, 8,
+             128) bf16 and a (4, 32) table with trash entries, plus one
+             pool whose page is not a multiple of 16 bytes: bitwise against
+             its plain version (``pool[pt]``); kernel, plain and library
+             (``pool[pt]``, one call) times and the bound of the pages'
+             bytes read and written.
+7. K4      — the split-K paged decode at the decode shape (4 rows, 16 query
+             and 8 kv heads of 128, bf16 pools of 16-token pages), tables
+             of 1, 8 and 32 pages with ragged lengths (0 included) and
+             trash entries: within 1e-6 of the plain version at n_splits
+             1, 2, 4 and 8 (bitwise expected: both sum in float64),
+             bitwise neutral to a covering table
+             prefix at one split; the n_splits that is fastest over the
+             three caps, kernel, plain and library (two gathers and
+             ``scaled_dot_product_attention`` with the length mask, three
+             calls) times and the bound of the live K/V bytes.
+8. serve   — qwen3-0.6b at full width (28 layers, random weights from
              --seed), TimeFloats ``mode="pallas"``, bf16 activations,
              Engine(slots=4, max_len=512), 8 requests (prompts of 5-60
-             tokens, 16 new tokens each, one at temperature 0.8) drained
+             tokens, 8 new tokens each, one at temperature 0.8) drained
              with the kernels; launch counts must be > 0 and host transfers
              equal decode steps. The same requests are then drained with
              every kernel replaced by its plain version: the token streams
              must be identical and the launch counts must not move.
-7. train   — the same model and mode, remat="full", AdamW: run_loop for 3
+9. paged   — the same model, Engine(paged=True, slots=4, max_len=512,
+             page_size=16), 8 greedy requests sharing a 48-token prefix
+             (3 pages) with 5-60-token tails, 16 new tokens each, drained
+             with the kernels and then with the plain versions. Gates:
+             identical first tokens, at least 6 of 8 identical streams (the
+             reference's own bar for split-K decode against a gather
+             composition), radix hits, a conserved pool, all-trash tables
+             after the drain, K4 and K6 launched only in the kernel drain,
+             one host transfer per step. Information only: how many
+             streams equal a dense engine's drain of the same requests.
+10. train  — the same model and mode, remat="full", AdamW: run_loop for 3
              steps of batch 4 x 256 from DataPipeline(kind="lm"), with a
              final checkpoint in a temporary directory. Per step: loss,
              grad norm, wall and host CPU seconds, K1 and K2 launches
@@ -67,10 +93,23 @@ INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 SLOTS, MAX_LEN = 4, 512        # the main drain's engine
 PROMPT_LENS = (5, 60)          # shortest and longest prompt of the drain
+PAGE, PREFIX = 16, 48          # the paged drain's page size, shared prefix
+# New tokens per dense request: 8 (16 before the paged phase came) keeps
+# the smoke near its earlier length while every slot is still reused once.
+DENSE_NEW = 8
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 256, 3   # the training phase
 K2_COSINE = 0.99999            # step-0 grads, kernels vs plain, per leaf
 K2_MAX_REL = 1e-2              # and max |diff| / max |plain| per leaf
 LOSS_RTOL = 1e-3               # later steps' losses, kernels vs plain
+# K4 against its plain version, |diff| / max(1, max |plain|). Expected
+# bitwise: both accumulate every sum in float64 and round once to float32,
+# so their different summation orders can differ only where a float64
+# result sits at a float32 rounding tie; such an ulp moves the output by
+# less than this.
+K4_TOL = 1e-6
+K4_SPLITS = (1, 2, 4, 8)
+K4_CAPS = (1, 8, 32)           # table extents (pages) held and timed
+PAGED_MIN_SAME = 6             # of 8 paged streams, kernels vs plain
 
 
 class SmokeFailure(Exception):
@@ -134,12 +173,16 @@ def k1_shapes(cfg):
 
 def k1_rows(cfg) -> dict:
     """M of every K1 call the main paths make: a decode step has one row
-    per slot, a prefill wave ``SLOTS`` rows of its prompts' length bucket,
-    a training step ``TRAIN_B * TRAIN_S``."""
+    per slot, a prefill wave ``SLOTS`` rows of its prompts' length bucket
+    (dense prompts, and paged prompts with their shared prefix; a radix
+    hit's suffix falls in a dense prompt's bucket), a training step
+    ``TRAIN_B * TRAIN_S``."""
     from repro_torch.serve.engine import bucket_for
 
     lo, hi = PROMPT_LENS
-    buckets = sorted({bucket_for(n, MAX_LEN) for n in range(lo, hi + 1)})
+    buckets = sorted({bucket_for(n, MAX_LEN) for n in range(lo, hi + 1)}
+                     | {bucket_for(n, MAX_LEN)
+                        for n in range(PREFIX + lo, PREFIX + hi + 1)})
     return {"decode": SLOTS, **{f"prefill{b}": SLOTS * b for b in buckets},
             "train": TRAIN_B * TRAIN_S}
 
@@ -362,6 +405,166 @@ def phase_k3(torch, cfg, seed: int) -> dict:
             "library_ms": lib}
 
 
+def phase_k6(torch, cfg, seed: int) -> dict:
+    from repro_torch.kernels import paged as kp
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    n_tab = MAX_LEN // PAGE
+    p = SLOTS * n_tab + 1
+    pool = torch.randn(p, PAGE, cfg.n_kv_heads, cfg.resolved_head_dim,
+                       generator=gen, device="cuda").bfloat16()
+    pt = torch.randint(1, p, (SLOTS, n_tab), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    pt[0, 8:] = 0   # trash entries past a short row
+    pt[3] = 0       # an idle row
+    got = kp.gather_pages(pool, pt)
+    want = kp.gather_pages_plain(pool, pt)
+    # A pool whose pages are 12 bytes: the kernel's 4-byte copy unit.
+    odd = torch.randn(7, 3, generator=gen, device="cuda")
+    odd_pt = torch.tensor([[6, 0], [2, 2]], dtype=torch.int32, device="cuda")
+    got_odd = kp.gather_pages(odd, odd_pt)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int16), want.view(torch.int16))
+          and torch.equal(got_odd, kp.gather_pages_plain(odd, odd_pt)),
+          "K6: kernel != plain")
+    ms = time_ms(torch, lambda: kp.gather_pages(pool, pt), reps=50)
+    plain = time_ms(torch, lambda: kp.gather_pages_plain(pool, pt), reps=50)
+    lib = time_ms(torch, lambda: pool[pt], reps=50)
+    page_bytes = pool[0].numel() * pool.element_size()
+    nbytes = 2 * pt.numel() * page_bytes + pt.numel() * 4
+    b_ms, b_by = bound(nbytes, 0.0)
+    print(f"K6 pool={tuple(pool.shape)} bf16 pt={tuple(pt.shape)} "
+          f"bitwise=True (and a 12-byte page) MiB_moved={nbytes / 2**20:.2f} "
+          f"ms={ms:.4f} plain_ms={plain:.4f} library_ms(pool[pt])={lib:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms:.4f} "
+          f"launches_per_prefill_wave={2 * cfg.n_layers}", flush=True)
+    return {"name": "K6 gather_pages (one launch at the prefill shape)",
+            "route": "cuda", "source": "src/repro_torch/csrc/paged_gather.cu",
+            "replaces": "src/repro/kernels/paged.py:35", "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib}
+
+
+def k4_case(torch, cfg, gen, n_tab: int):
+    """Decode-shape operands with an ``n_tab``-page table: ragged lengths
+    (an empty row, a full one, a single page, a random one) and trash
+    entries past each row's extent."""
+    p = SLOTS * (MAX_LEN // PAGE) + 1
+    hkv, d = cfg.n_kv_heads, cfg.resolved_head_dim
+    q = torch.randn(SLOTS, cfg.n_heads, d, generator=gen,
+                    device="cuda").bfloat16()
+    kpool = torch.randn(p, PAGE, hkv, d, generator=gen,
+                        device="cuda").bfloat16()
+    vpool = torch.randn(p, PAGE, hkv, d, generator=gen,
+                        device="cuda").bfloat16()
+    cap = n_tab * PAGE
+    rnd = int(torch.randint(1, cap + 1, (1,), generator=gen,
+                            device="cuda").item())
+    lens = torch.tensor([0, cap, min(PAGE, cap), rnd], dtype=torch.int32,
+                        device="cuda")
+    ids = torch.randperm(p - 1, generator=gen, device="cuda")[:SLOTS * n_tab]
+    pt = (ids + 1).to(torch.int32).reshape(SLOTS, n_tab)
+    live = (lens.to(torch.int64) + PAGE - 1) // PAGE
+    pt[torch.arange(n_tab, device="cuda")[None, :] >= live[:, None]] = 0
+    return q, kpool, vpool, pt, lens
+
+
+def phase_k4(torch, cfg, seed: int) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attn as kpa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    hkv, d = cfg.n_kv_heads, cfg.resolved_head_dim
+    times = {ns: 0.0 for ns in K4_SPLITS}
+    worst, exact, rec = 0.0, True, None
+    for n_tab in K4_CAPS:
+        q, kpool, vpool, pt, lens = k4_case(torch, cfg, gen, n_tab)
+        for ns in K4_SPLITS:
+            got = kpa.paged_decode_attention(q, kpool, vpool, pt, lens,
+                                             n_splits=ns)
+            want = kpa._combine(*kpa._gqa_plain(
+                q, kpool, vpool, pt, lens, scale=1.0 / math.sqrt(d),
+                n_splits=kpa._norm_splits(ns, n_tab, page_size=PAGE,
+                                          heads=cfg.n_heads, head_dim=d)))
+            torch.cuda.synchronize()
+            err = ((got - want).abs().max()
+                   / want.abs().max().clamp_min(1.0)).item()
+            worst = max(worst, err)
+            exact = exact and torch.equal(got, want)
+            check(err <= K4_TOL and bool(torch.isfinite(got).all())
+                  and bool((got[lens == 0] == 0).all()),
+                  f"K4 cap={n_tab} n_splits={ns}: max rel {err} > {K4_TOL}"
+                  " or a length-0 row not exactly 0")
+        # A covering prefix of the table is neutral (one split: the same
+        # live positions in the same order).
+        if n_tab == 32:
+            short = lens.clamp_max(8 * PAGE)
+            full = kpa.paged_decode_attention(q, kpool, vpool, pt, short,
+                                              n_splits=1)
+            capped = kpa.paged_decode_attention(q, kpool, vpool, pt[:, :8],
+                                                short, n_splits=1)
+            torch.cuda.synchronize()
+            check(torch.equal(full, capped), "K4: an 8-page prefix of a "
+                  "32-page table changes the output")
+        row = []
+        for ns in K4_SPLITS:
+            t = time_ms(torch, lambda: kpa.paged_decode_attention(
+                q, kpool, vpool, pt, lens, n_splits=ns), reps=50)
+            times[ns] += t
+            row.append(f"{ns}:{t:.4f}")
+        print(f"K4 cap={n_tab:2d} pages lengths={lens.tolist()} ms by "
+              f"n_splits {' '.join(row)}", flush=True)
+        if n_tab == 8:  # the paged drain's usual cap (prompts up to 108)
+            rec = (q, kpool, vpool, pt, lens)
+    ns_best = min(K4_SPLITS, key=lambda n: times[n])
+    print(f"K4 n_splits winner over caps {K4_CAPS}: {ns_best} (key "
+          f"p{PAGE}_h{cfg.n_heads}_d{d}_r{SLOTS}); bitwise={exact} max "
+          f"|diff|/max(1,|plain|) {worst:.3e} (tolerance {K4_TOL})",
+          flush=True)
+
+    q, kpool, vpool, pt, lens = rec
+    ms = time_ms(torch, lambda: kpa.paged_decode_attention(
+        q, kpool, vpool, pt, lens, n_splits=ns_best), reps=50)
+    plain = time_ms(torch, lambda: kpa._combine(*kpa._gqa_plain(
+        q, kpool, vpool, pt, lens, scale=1.0 / math.sqrt(d),
+        n_splits=ns_best)),
+        reps=10)
+    s_len = pt.shape[1] * PAGE
+    mask = (torch.arange(s_len, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def library():
+        k = kpool[pt].reshape(SLOTS, s_len, hkv, d).transpose(1, 2)
+        v = vpool[pt].reshape(SLOTS, s_len, hkv, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib = time_ms(torch, library, reps=50)
+    live = int(lens.sum().item())
+    nbytes = (live * hkv * 2 * d * kpool.element_size() + q.numel() * 2
+              + SLOTS * cfg.n_heads * d * 4 + pt.numel() * 4 + SLOTS * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * live * cfg.n_heads * d,
+                       BF16_FLOPS_PER_S)
+    per = cfg.n_layers
+    print(f"K4 cap=8 pages n_splits={ns_best} live_positions={live} "
+          f"KiB_live={nbytes / 1024:.1f} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"library_ms(2 gathers + sdpa, 3 calls)={lib:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by}) share_of_bound={b_ms / ms:.4f} "
+          f"launches_per_decode_step={per}; per decode step ms="
+          f"{per * ms:.4f} plain_ms={per * plain:.4f} "
+          f"library_ms={per * lib:.4f} bound_ms={per * b_ms:.5f}",
+          flush=True)
+    return {"name": f"K4 paged_decode_attention (one decode step: {per} "
+                    "launches, 8-page cap)",
+            "route": "cuda", "source": "src/repro_torch/csrc/paged_attn_gqa.cu",
+            "replaces": "src/repro/kernels/paged_attn.py:172",
+            "max_abs_err": worst, "ms": per * ms, "plain_ms": per * plain,
+            "bound_ms": per * b_ms, "bound_by": b_by,
+            "library_ms": per * lib}
+
+
 def _requests(cfg, seed: int):
     import numpy as np
 
@@ -372,7 +575,7 @@ def _requests(cfg, seed: int):
     lens = rng.integers(lo, hi + 1, 8)
     lens[0], lens[1] = lo, hi
     return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(n))
-                    .astype(np.int32), max_new_tokens=16,
+                    .astype(np.int32), max_new_tokens=DENSE_NEW,
                     temperature=0.8 if i == 3 else 0.0)
             for i, n in enumerate(lens)]
 
@@ -392,18 +595,11 @@ def _drain(torch, params, cfg, seed: int):
     return eng, {f.uid: [int(t) for t in f.tokens] for f in done}, wall, cpu
 
 
-def phase_serve(torch, cfg, seed: int) -> dict:
+def phase_serve(torch, cfg, seed: int, params) -> dict:
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import sampling as ks
     from repro_torch.kernels import timefloats_matmul as km
     from repro_torch.models import model
-
-    t0 = time.monotonic()
-    params = model.init(cfg, seed, device="cuda")
-    torch.cuda.synchronize()
-    print(f"serve: init {cfg.name} ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}) in "
-          f"{time.monotonic() - t0:.1f}s", flush=True)
 
     km.timefloats_matmul_quantized.launches = 0
     ks.sample.launches = 0
@@ -422,7 +618,8 @@ def phase_serve(torch, cfg, seed: int) -> dict:
           f"K3_launches={k3} peak_mem_GB="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
     check(sorted(streams) == list(range(8)), f"finished {sorted(streams)}")
-    check(all(len(t) == 16 for t in streams.values()), "16 tokens each")
+    check(all(len(t) == DENSE_NEW for t in streams.values()),
+          f"{DENSE_NEW} tokens each")
     check(all(0 <= t < cfg.vocab_size for s in streams.values() for t in s),
           "token ids in range")
     check(k1 > 0 and k3 > 0, f"kernel launches K1={k1} K3={k3}")
@@ -444,6 +641,120 @@ def phase_serve(torch, cfg, seed: int) -> dict:
     check(km.timefloats_matmul_quantized.launches == 0
           and ks.sample.launches == 0, "reference drain launched a kernel")
     return {"K1": k1, "K3": k3}
+
+
+def _paged_requests(cfg, seed: int):
+    """8 greedy requests: a shared 48-token prefix (3 pages) plus tails of
+    5-60 tokens, 16 new tokens each."""
+    import numpy as np
+
+    from repro_torch.serve.request import Request
+
+    rng = np.random.default_rng(seed + 5)
+    shared = rng.integers(0, cfg.vocab_size, PREFIX).astype(np.int32)
+    lo, hi = PROMPT_LENS
+    lens = rng.integers(lo, hi + 1, 8)
+    lens[0], lens[1] = lo, hi
+    return [Request(uid=i, prompt=np.concatenate(
+        [shared, rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)]),
+        max_new_tokens=16) for i, n in enumerate(lens)]
+
+
+def _paged_drain(torch, params, cfg, seed: int, paged: bool = True):
+    from repro_torch.serve.engine import Engine
+
+    eng = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed,
+                 paged=paged, page_size=PAGE)
+    for r in _paged_requests(cfg, seed):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0, c0 = time.monotonic(), time.process_time()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    cpu = time.process_time() - c0
+    return eng, {f.uid: [int(t) for t in f.tokens] for f in done}, wall, cpu
+
+
+def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import paged as kp
+    from repro_torch.kernels import paged_attn as kpa
+    from repro_torch.kernels import sampling as ks
+    from repro_torch.kernels import timefloats_matmul as km
+
+    counters = {"K1": km.timefloats_matmul_quantized, "K3": ks.sample,
+                "K4": kpa.paged_decode_attention, "K6": kp.gather_pages}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    reset()
+    eng, streams, wall, cpu = _paged_drain(torch, params, cfg, seed)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    st = eng.stats()
+    new = int(st["new_tokens"])
+    print(f"paged: drained {int(st['finished'])} requests, {new} tokens in "
+          f"{wall:.2f}s: tok/s={new / wall:.2f} "
+          f"wall_ms_per_step={1e3 * wall / eng.steps:.1f} "
+          f"host_cpu_ms_per_step={1e3 * cpu / eng.steps:.1f} "
+          f"host_cpu_share={cpu / wall:.3f} "
+          f"ttft_p50_s={st['ttft_p50_s']:.4f} "
+          f"latency_p50_s={st['latency_p50_s']:.4f} steps={eng.steps} "
+          f"host_transfers={eng.host_transfers} launches={launches} "
+          f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          flush=True)
+    print("paged: " + " ".join(f"{k}={st[k]:g}" for k in (
+        "radix_hits", "radix_hit_rate", "radix_nodes", "radix_evictions",
+        "pool_pages_total", "pool_pages_in_use", "pool_pages_free")),
+        flush=True)
+    waves = launches["K6"] // (2 * cfg.n_layers)
+    print(f"paged: K4 launches per decode step "
+          f"{launches['K4'] / eng.steps:g}, K6 launches per prefill wave "
+          f"{launches['K6'] / max(waves, 1):g} ({waves} waves)", flush=True)
+    check(sorted(streams) == list(range(8)), f"paged: finished "
+          f"{sorted(streams)}")
+    check(all(len(t) == 16 for t in streams.values()), "paged: 16 tokens each")
+    check(launches["K4"] > 0 and launches["K6"] > 0,
+          f"paged: kernel launches {launches}")
+    check(launches["K4"] == cfg.n_layers * eng.steps,
+          f"paged: {launches['K4']} K4 launches in {eng.steps} steps")
+    check(launches["K6"] == 2 * cfg.n_layers * waves, "paged: K6 launches "
+          "are not 2 per layer per wave")
+    check(eng.host_transfers == eng.steps,
+          f"paged: host_transfers {eng.host_transfers} != steps {eng.steps}")
+    check(st["radix_hit_rate"] > 0, "paged: no radix hit")
+    check(eng.pool.conserved(), "paged: pool not conserved")
+    check(not bool(eng.state.cache.layers[0].pt.any()),
+          "paged: page tables not all-trash after the drain")
+
+    reset()
+    with dispatch.override(kernels=False):
+        ref_eng, ref, ref_wall, _ = _paged_drain(torch, params, cfg, seed)
+    plain_launches = {k: fn.launches for k, fn in counters.items()}
+    same = sorted(u for u in streams if streams[u] == ref[u])
+    firsts = all(streams[u][0] == ref[u][0] for u in streams)
+    print(f"paged: reference drain (plain versions) in {ref_wall:.2f}s; "
+          f"identical streams {len(same)}/8 (gate >= {PAGED_MIN_SAME}); "
+          f"identical first tokens {firsts}", flush=True)
+    for u in sorted(set(streams) - set(same)):
+        step = next(i for i, (a, b) in enumerate(zip(streams[u], ref[u]))
+                    if a != b)
+        print(f"paged: uid {u} first differs at token {step}", flush=True)
+    check(firsts, "paged: first tokens differ between kernels and plain")
+    check(len(same) >= PAGED_MIN_SAME, f"paged: only {len(same)}/8 streams "
+          "identical")
+    check(all(v == 0 for v in plain_launches.values()),
+          f"paged: the plain drain launched {plain_launches}")
+    check(ref_eng.pool.conserved(), "paged: plain drain's pool")
+
+    _, dense, _, _ = _paged_drain(torch, params, cfg, seed, paged=False)
+    print(f"paged: information only: {sum(dense[u] == streams[u] for u in streams)}"
+          "/8 streams equal a dense engine's drain of the same requests",
+          flush=True)
+    reset()
+    return launches
 
 
 def phase_train(torch, cfg, seed: int) -> dict:
@@ -576,6 +887,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.timefloats import TFConfig
     from repro_torch.kernels import _build
+    from repro_torch.models import model
 
     # The plain K1 takes each chunk's integer dot as an f32 matmul, exact
     # only without TF32.
@@ -592,26 +904,37 @@ def main(argv=None) -> int:
     secs = _build.build(_build.SOURCES)
     for name in _build.SOURCES:
         _build.load(name)
-    print(f"build: K1, K2 and K3 built from src/repro_torch/csrc in "
-          f"{secs:.1f}s", flush=True)
+    print(f"build: K1, K2, K3, K4 and K6 built from src/repro_torch/csrc "
+          f"in {secs:.1f}s", flush=True)
 
     cfg = get_config("qwen3-0.6b", tf=TFConfig(mode="pallas"))
     try:
         k1_serve, k1_train = phase_k1(torch, cfg, args.seed)
         k2 = phase_k2(torch, cfg, args.seed)
         k3 = phase_k3(torch, cfg, args.seed)
-        serve = phase_serve(torch, cfg, args.seed)
+        k6 = phase_k6(torch, cfg, args.seed)
+        k4 = phase_k4(torch, cfg, args.seed)
+        t0 = time.monotonic()
+        params = model.init(cfg, args.seed, device="cuda")
+        torch.cuda.synchronize()
+        print(f"serve: init {cfg.name} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}) in "
+              f"{time.monotonic() - t0:.1f}s", flush=True)
+        serve = phase_serve(torch, cfg, args.seed, params)
+        paged = phase_paged_serve(torch, cfg, args.seed, params)
+        del params
         train = phase_train(torch, cfg, args.seed)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
     k1_serve["launches"], k3["launches"] = serve["K1"], serve["K3"]
     k1_train["launches"], k2["launches"] = train["K1"], train["K2"]
+    k4["launches"], k6["launches"] = paged["K4"], paged["K6"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"total: {time.monotonic() - t_start:.1f}s", flush=True)
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in (k1_serve, k1_train, k2, k3)]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (
+        k1_serve, k1_train, k2, k3, k4, k6)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

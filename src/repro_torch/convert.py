@@ -1,10 +1,11 @@
-"""Parameters from the JAX package into the port's layout.
+"""Parameters and paged caches from the JAX package into the port's layout.
 
 ``from_jax_params(np_tree, cfg, device)`` takes the tree that
 ``repro.models.model.init`` returns, already turned into numpy arrays by
 the caller (this package never imports JAX), and returns the port's
 parameters. The reference stacks each layer group's leaves along a leading
-``(layers,)`` dim; here they are sliced into one dict per layer. bf16
+``(layers,)`` dim; here they are sliced into one dict per layer.
+``from_jax_paged_cache`` does the same for a paged serving cache. bf16
 leaves cross as a uint16 bit view (or numpy's ``bfloat16`` extension
 dtype, which is viewed the same way).
 """
@@ -51,3 +52,32 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     if "lm_head" in np_tree:
         out["lm_head"] = _tensor(np_tree["lm_head"], device)
     return out
+
+
+def from_jax_paged_cache(np_cache: Any, device="cuda"):
+    """Reference paged ``ModelCache`` with numpy leaves (for instance the
+    reference cache mapped through ``np.asarray`` leaf by leaf) -> the
+    port's. Each of its ``groups`` holds stacked pools ``k``/``v``
+    ``(L, P, page, Hkv, D)`` and tables ``pt (L, B, T)``, which the
+    reference replicates over L; the port keeps one table for every layer,
+    so the copies must agree."""
+    from repro_torch.models.attention import PagedKVCache
+    from repro_torch.models.model import ModelCache
+
+    layers = []
+    pt = None
+    for g in np_cache.groups:
+        tables = np.asarray(g.pt)
+        if not (tables == tables[:1]).all():
+            raise ValueError("the page tables differ across layers")
+        if pt is None:
+            pt = _tensor(tables[0].astype(np.int32), device)
+        elif not np.array_equal(pt.cpu().numpy(), tables[0]):
+            raise ValueError("the page tables differ across layer groups")
+        k, v = np.asarray(g.k), np.asarray(g.v)
+        layers += [PagedKVCache(k=_tensor(k[i], device),
+                                v=_tensor(v[i], device), pt=pt)
+                   for i in range(k.shape[0])]
+    return ModelCache(layers=tuple(layers),
+                      lengths=_tensor(np.asarray(np_cache.lengths,
+                                                 np.int32), device))

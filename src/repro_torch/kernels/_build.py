@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # The C entry points of each source and their argument types; every entry
 # point returns an int (its cudaGetLastError()).
 SIGNATURES: Dict[str, Dict[str, list]] = {
@@ -43,6 +44,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "sampling": {
         # lg, noise, temps, out, S, V, stream
         "sample_tokens": [_P] * 4 + [_I] * 2 + [_P]},
+    "paged_gather": {
+        # pool, pt, out, entries, P, page_bytes, vec_bytes, stream
+        "gather_pages": [_P] * 3 + [_I] * 2 + [_L, _I, _P]},
+    "paged_attn_gqa": {
+        # q, kp, vp, pt, lengths, m, l, acc, out, B, H, Hkv, Dk, Dv, P,
+        # page, ts, S, pt_stride, scale, pool_bf16, stream
+        "paged_attn_gqa": [_P] * 9 + [_I] * 9 + [_L, _F, _I, _P],
+        # G, Dk, span -> bytes of shared memory
+        "paged_attn_gqa_smem": [_I] * 3},
 }
 SOURCES = tuple(SIGNATURES)  # every csrc/<name>.cu, built together
 

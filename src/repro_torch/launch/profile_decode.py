@@ -2,17 +2,20 @@
 
 Serves qwen3-0.6b at full width (random weights from ``--seed``, TimeFloats
 ``mode="pallas"``, bf16 activations) through ``Engine(slots=4,
-max_len=512)``: four 32-token prompts are admitted and warmed up, then
-``--steps`` engine steps (one fused decode each) run with the profiler off
-and ``--steps`` more under ``torch.profiler``. It prints:
+max_len=512)``, dense by default and with ``--paged`` on the paged pool
+(16-token pages, fused split-K decode through K4): four 32-token prompts
+are admitted and warmed up, then ``--steps`` engine steps (one fused
+decode each) run with the profiler off and ``--steps`` more under
+``torch.profiler``. It prints:
 
 - with the profiler off, wall ms per step (host clock around steps that
   end in a synchronize) and the host CPU ms this process spent per step
   (all threads), so their ratio says how busy the host was;
 - with the profiler on, wall ms per step;
 - device ms and kernel launches per step in all, the device's busy share
-  of the wall time, and the shares of the hand kernels (K1, K3; K2 runs
-  only in training);
+  of the wall time, and the shares of the hand kernels (K1, K3, and K4
+  on the paged engine, counted as its split kernel and its combine; K2
+  runs only in training, K6 only in prefill waves and unfused decode);
 - the top operators by the device time of the kernels they launch
   themselves, and the top kernels by name;
 - the elapsed ms (CUDA events) of prescaling and quantizing every weight
@@ -42,7 +45,8 @@ from repro_torch.serve.engine import Engine
 from repro_torch.serve.request import Request
 
 HAND_KERNELS = {"K1": "tf_matmul_kernel", "K2": "tf_matmul_t_kernel",
-                "K3": "sample_kernel"}
+                "K3": "sample_kernel", "K4": "gqa_",
+                "K6": "gather_pages_kernel"}
 
 
 def step_weights(params) -> list:
@@ -79,8 +83,9 @@ def weight_quant_ms(params, cfg, reps: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profile_steps(params, cfg, *, steps: int, seed: int, top: int) -> None:
-    eng = Engine(params, cfg, slots=4, max_len=512, seed=seed,
+def profile_steps(params, cfg, *, steps: int, seed: int, top: int,
+                  paged: bool = False) -> None:
+    eng = Engine(params, cfg, slots=4, max_len=512, seed=seed, paged=paged,
                  device=params["embed"].device)
     rng = np.random.default_rng(seed)
     for i in range(4):
@@ -95,7 +100,8 @@ def profile_steps(params, cfg, *, steps: int, seed: int, top: int) -> None:
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.monotonic() - t0) / steps
     cpu_ms = 1e3 * (time.process_time() - c0) / steps
-    print(f"decode step, profiler off: wall_ms={wall_ms:.3f} "
+    what = "paged decode step" if paged else "decode step"
+    print(f"{what}, profiler off: wall_ms={wall_ms:.3f} "
           f"host_cpu_ms={cpu_ms:.3f} host_cpu_share={cpu_ms / wall_ms:.4f}",
           flush=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -106,7 +112,7 @@ def profile_steps(params, cfg, *, steps: int, seed: int, top: int) -> None:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0) / steps
 
-    report(prof, steps=steps, wall_ms=wall_ms, what="decode step", top=top)
+    report(prof, steps=steps, wall_ms=wall_ms, what=what, top=top)
 
 
 def report(prof, *, steps: int, wall_ms: float, what: str, top: int) -> None:
@@ -145,6 +151,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--paged", action="store_true",
+                    help="profile the paged engine's decode step (K4)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
@@ -155,7 +163,7 @@ def main(argv=None) -> int:
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, mode pallas, "
           f"{cfg.dtype}", flush=True)
     profile_steps(params, cfg, steps=args.steps, seed=args.seed,
-                  top=args.top)
+                  top=args.top, paged=args.paged)
     print(f"weights of one step ({len(step_weights(params))}): prescale + "
           f"quantize elapsed_ms={weight_quant_ms(params, cfg):.3f}",
           flush=True)

@@ -1,15 +1,20 @@
-"""GQA attention (port of ``repro.models.attention``): the dense-cache
-decode branch and the full-sequence blockwise branch.
+"""GQA attention (port of ``repro.models.attention``): the dense-cache and
+paged-cache decode branches and the full-sequence blockwise branch.
 
 Serving never runs the blockwise (flash-style) path: prefill writes its
 K/V slab into the cache and attends through :func:`decode_attention` over
 the whole ``max_len`` extent with ragged masks, exactly as the reference
-does. Training (no cache) runs :func:`blockwise_attention`. The paged
-branches come with a later slice.
+does. Training (no cache) runs :func:`blockwise_attention`. On a paged
+cache (:class:`PagedKVCache`, DESIGN.md §8) single-token decode runs the
+fused split-K kernel K4 (``kernels/paged_attn``) over the table's
+KV-extent prefix; prefill, and decode with ``fused=False``, read the
+rows' dense view through the page gather K6 (``kernels/paged``) and attend
+with :func:`decode_attention`. The speculative chain-verify branch comes
+with the speculative-decoding slice.
 
-The cache is updated in place (``cache_update``): the reference returns a
-new cache, but every caller here drops the old one, and in-place writes
-save a cache-sized copy per layer.
+Caches are updated in place (``cache_update``, ``paged_write``): the
+reference returns new ones, but every caller here drops the old one, and
+in-place writes save a cache- or pool-sized copy per layer.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged import gather_pages
+from repro_torch.kernels.paged_attn import paged_decode_attention
 from repro_torch.models.common import ParamSpec, dense, dense_in, rms_norm, rope
 
 Tensor = torch.Tensor
@@ -56,6 +63,67 @@ class KVCache(NamedTuple):
 
     k: Tensor
     v: Tensor
+
+
+class PagedKVCache(NamedTuple):
+    """Per-layer PAGED KV cache (DESIGN.md §8): k/v are page pools
+    ``(P, page, Hkv, D)`` shared by every batch row; ``pt (B, T)`` int32 is
+    the per-row page table (``T * page == max_len``). Page 0 is the
+    reserved trash page: unassigned entries point there, so out-of-range
+    or stale writes land in scratch instead of another row's pages."""
+
+    k: Tensor
+    v: Tensor
+    pt: Tensor
+
+
+def paged_write(pool: Tensor, new: Tensor, positions: Tensor,
+                page_table: Tensor) -> Tensor:
+    """Scatter ``new (B, S, *feat)`` into ``pool (P, page, *feat)`` in place
+    at per-row start ``positions (B,)``: position ``p`` of row ``b`` lands
+    in page ``page_table[b, p // page]`` at offset ``p % page``; positions
+    past the table hit the trash page. Rows only ever share the trash
+    page, so colliding writes land only there."""
+    b, s = new.shape[:2]
+    page = pool.shape[1]
+    n_tab = page_table.shape[1]
+    pos = (positions.to(torch.int64)[:, None]
+           + torch.arange(s, dtype=torch.int64, device=new.device)[None, :])
+    pslot = pos // page
+    pids = torch.gather(page_table.to(torch.int64), 1,
+                        torch.clamp_max(pslot, n_tab - 1))
+    pids = torch.where(pslot < n_tab, pids, 0)
+    pool[pids, pos % page] = new.to(pool.dtype)
+    return pool
+
+
+def paged_view(pool: Tensor, page_table: Tensor) -> Tensor:
+    """Dense per-row read view ``(B, T*page, *feat)`` of a page pool
+    through the page gather (K6)."""
+    b, t = page_table.shape
+    gathered = gather_pages(pool, page_table)  # (B, T, page, *feat)
+    return gathered.reshape((b, t * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def fused_paged_ok(mask: MaskSpec, seq: int) -> bool:
+    """The fused split-K kernel covers single-token decode under the plain
+    causal mask; anything else takes the gather + softmax composition."""
+    return (seq == 1 and mask.causal and mask.window is None
+            and not mask.prefix_len)
+
+
+def _capped_pt(page_table: Tensor, page: int, kv_cap: Optional[int]
+               ) -> Tensor:
+    """The prefix of the page table covering ``kv_cap`` positions, the
+    engine's KV-extent cap (DESIGN.md §9): the host guarantees every live
+    row's length fits it. None (or an oversized cap) keeps the table."""
+    if kv_cap is None:
+        return page_table
+    if kv_cap % page:
+        raise ValueError(f"kv_cap {kv_cap} is not a multiple of the page "
+                         f"size {page}")
+    t_cap = max(1, min(kv_cap // page, page_table.shape[1]))
+    return page_table[:, :t_cap]
 
 
 def decode_attention(
@@ -199,12 +267,15 @@ def head_mask(cfg: ModelConfig, device=None) -> Optional[Tensor]:
 
 def attention_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
                     *, mask: MaskSpec, positions: Tensor,
-                    cache: Optional[KVCache], lengths: Optional[Tensor]
-                    ) -> tuple[Tensor, Optional[KVCache]]:
+                    cache: Optional[KVCache | PagedKVCache],
+                    lengths: Optional[Tensor], kv_cap: Optional[int] = None,
+                    fused: bool = True
+                    ) -> tuple[Tensor, Optional[KVCache | PagedKVCache]]:
     """Self-attention: project, qk-norm, rope, then either write the new
     K/V at ``positions[:, 0]`` and attend over the cache (``lengths`` (B,)
     are the post-update cache lengths), or, with no cache, attend over the
-    sequence itself blockwise (training)."""
+    sequence itself blockwise (training). On a paged cache, single-token
+    decode with ``fused`` runs K4 over the table's ``kv_cap`` prefix."""
     q = dense(x, params["wq"], cfg)   # (B, S, H, hd)
     k = dense(x, params["wk"], cfg)
     v = dense(x, params["wv"], cfg)
@@ -214,7 +285,18 @@ def attention_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
     if cfg.pos_variant == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    if cache is not None:
+    if isinstance(cache, PagedKVCache):
+        paged_write(cache.k, k, positions[:, 0], cache.pt)
+        paged_write(cache.v, v, positions[:, 0], cache.pt)
+        if fused and fused_paged_ok(mask, q.shape[1]):
+            pt = _capped_pt(cache.pt, cache.k.shape[1], kv_cap)
+            out = paged_decode_attention(q[:, 0], cache.k, cache.v, pt,
+                                         lengths)[:, None]
+        else:
+            out = decode_attention(q, paged_view(cache.k, cache.pt),
+                                   paged_view(cache.v, cache.pt),
+                                   positions, lengths, mask)
+    elif cache is not None:
         cache = cache_update(cache, k, v, positions[:, 0])
         out = decode_attention(q, cache.k, cache.v, positions, lengths, mask)
     else:

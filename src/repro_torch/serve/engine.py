@@ -1,5 +1,6 @@
-"""Device-resident continuous batching, dense fused path (port of
-``repro.serve.engine``, DESIGN.md §7).
+"""Device-resident continuous batching with a fused device step (port of
+``repro.serve.engine``, DESIGN.md §7), on a dense slot cache or on a paged
+pool with radix prefix reuse (DESIGN.md §8).
 
 - **EngineState** — cache, per-slot last token, active mask, temperature
   and steps-remaining budget live on the device; the host mirrors only the
@@ -15,6 +16,20 @@
   every wave and of the decode travel in a single copy, counted in
   ``host_transfers``.
 
+- **Admission** goes through ``serve/sched.Scheduler`` (FCFS with a
+  bounded skip-ahead past requests that cannot reserve pages and a
+  starvation guard).
+- **Paged mode** (``paged=True``): the slot rows become a fixed inventory
+  of ``page_size``-token pages (``serve/kvpool.PagePool``) addressed
+  through per-slot page tables. Admission matches the prompt against a
+  host radix tree (``serve/radix.RadixCache``): the longest page-aligned
+  cached prefix is borrowed (its table entries point at the shared pages,
+  nothing is copied) and the prefill wave runs only the suffix, bucketed
+  by suffix length, through the page gather K6. Decode runs the fused
+  split-K kernel K4 over a pow2 KV-extent cap of the table
+  (``fused_decode=False`` keeps the gather + softmax composition). Freed
+  slots' tables are reset to all-trash before the next decode.
+
 Behaviour kept from the reference: ``max_new_tokens=1`` finishes at
 prefill, EOS is checked on the prefill token, a slot is done when its cache
 length reaches ``max_len - 1``, and ``submit_t`` is stamped at ``submit``.
@@ -22,8 +37,8 @@ Temperature noise comes from a ``torch.Generator`` seeded with ``seed``
 (the reference's threefry key chain is not ported), so only greedy streams
 match the reference token for token.
 
-Later slices: paged cache + radix reuse, chunked prefill, speculative
-decoding, the cost scheduler, tracing, health and energy telemetry.
+Later slices: chunked prefill, speculative decoding, the cost scheduler,
+tracing, health and energy telemetry, ``compile_cache_stats``.
 """
 from __future__ import annotations
 
@@ -37,7 +52,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.sampling import sample_tokens
 from repro_torch.models import model as model_lib
+from repro_torch.serve.kvpool import PagePool
+from repro_torch.serve.radix import RadixCache
 from repro_torch.serve.request import Finished, Request, percentile
+from repro_torch.serve.sched import Scheduler
 
 Tensor = torch.Tensor
 
@@ -84,12 +102,15 @@ def _admit_update(state: EngineState, cache: model_lib.ModelCache,
 
 
 class Engine:
-    """Fixed-slot continuous batching with a fused device step (dense
-    cache, FCFS admission). ``device`` defaults to the card."""
+    """Fixed-slot continuous batching with a fused device step, FCFS
+    admission, and optionally the paged cache pool with radix prefix reuse
+    (``paged``). ``device`` defaults to the card."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
                  max_len: int = 512, eos_id: Optional[int] = None,
-                 seed: int = 0, min_bucket: int = 8, device="cuda"):
+                 seed: int = 0, min_bucket: int = 8, paged: bool = False,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 fused_decode: Optional[bool] = None, device="cuda"):
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -98,9 +119,37 @@ class Engine:
         self.min_bucket = min_bucket
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.paged = paged
+        # Fused split-K paged decode: on for paged engines unless asked
+        # off; dense engines have no paged kernel to fuse.
+        self.fused_decode = paged if fused_decode is None else fused_decode
+        if paged:
+            if not model_lib.paged_supported(cfg):
+                raise ValueError(f"paged cache: {cfg.name} is not a "
+                                 "supported family")
+            if max_len % page_size:
+                raise ValueError(f"max_len {max_len} is not a multiple of "
+                                 f"page_size {page_size}")
+            self.page_size = page_size
+            self.n_ptab = max_len // page_size
+            if num_pages is None:
+                # Dense-equivalent capacity plus the trash page.
+                num_pages = slots * self.n_ptab + 1
+            self.pool = PagePool(num_pages, page_size)
+            self.radix = RadixCache(self.pool)
+            self._slot_pages: Dict[int, List[int]] = {}
+            self._prefix_hits = 0
+            self._prefix_tokens = 0
+            self._prompt_tokens = 0
+            cache = model_lib.init_paged_cache(
+                cfg, slots, max_len, page_size=page_size,
+                num_pages=num_pages, device=self.device)
+        else:
+            cache = model_lib.init_cache(cfg, slots, max_len, self.device)
+        self.sched = Scheduler("fcfs")
         z_i = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self.state = EngineState(
-            cache=model_lib.init_cache(cfg, slots, max_len, self.device),
+            cache=cache,
             last_token=torch.zeros((slots, 1), dtype=torch.int32,
                                    device=self.device),
             active=torch.zeros((slots,), dtype=torch.bool, device=self.device),
@@ -118,25 +167,34 @@ class Engine:
 
     # -- device calls --------------------------------------------------------
     def _prefill_wave(self, sb: int, group):
-        """One pow2-bucket prefill wave, padded to ``slots`` rows."""
+        """One pow2-bucket prefill wave, padded to ``slots`` rows. A paged
+        row prefills its prompt from ``skip``, the radix-matched prefix."""
         slots = self.slots
         tokens = np.zeros((slots, sb), np.int32)
         plens = np.zeros((slots,), np.int32)          # dummy rows: len 0
+        offs = np.zeros((slots,), np.int32)
         ids = np.full((slots,), slots, np.int32)      # dummy rows: drop
         temps = np.zeros((slots,), np.float32)
         budgets = np.ones((slots,), np.int32)
-        for r, (slot, req) in enumerate(group):
+        for r, (slot, req, skip, _pages) in enumerate(group):
             p = np.asarray(req.prompt)
-            tokens[r, : len(p)] = p
+            tokens[r, : len(p) - skip] = p[skip:]
             plens[r] = len(p)
+            offs[r] = skip
             ids[r] = slot
             temps[r] = req.temperature
             budgets[r] = req.max_new_tokens
         dev = self.device
-        logits, cache = model_lib.prefill_into_slots(
-            self.params, torch.as_tensor(tokens, device=dev), self.cfg,
-            self.state.cache, torch.as_tensor(plens, device=dev), ids,
-            max_len=self.max_len)
+        tok_t = torch.as_tensor(tokens, device=dev)
+        plen_t = torch.as_tensor(plens, device=dev)
+        if self.paged:
+            logits, cache = model_lib.prefill_into_pages(
+                self.params, tok_t, self.cfg, self.state.cache, plen_t,
+                torch.as_tensor(offs, device=dev), ids)
+        else:
+            logits, cache = model_lib.prefill_into_slots(
+                self.params, tok_t, self.cfg, self.state.cache, plen_t, ids,
+                max_len=self.max_len)
         self.state, out = _admit_update(
             self.state, cache, logits, ids, torch.as_tensor(temps, device=dev),
             torch.as_tensor(budgets, device=dev), eos=self.eos_id,
@@ -145,8 +203,9 @@ class Engine:
 
     def _decode_and_sample(self):
         st = self.state
-        logits, cache = model_lib.decode_step(self.params, st.cache,
-                                              st.last_token, self.cfg)
+        logits, cache = model_lib.decode_step(
+            self.params, st.cache, st.last_token, self.cfg,
+            kv_cap=self._decode_cap(), fused_paged=self.fused_decode)
         tok = sample_tokens(logits[:, 0], st.temp, self.generator)
         rem = st.remaining - 1
         done = (rem <= 0) | (cache.lengths >= self.max_len - 1)
@@ -162,33 +221,119 @@ class Engine:
             remaining=torch.where(st.active, rem, st.remaining))
         return tok, done
 
+    def _decode_cap(self) -> Optional[int]:
+        """KV-extent cap (tokens) for this step's fused paged decode, or
+        None. The largest extent any active slot touches this step is
+        ``prompt + generated`` (the decode writes at its last position),
+        rounded up to a pow2 page count. Pages past a row's length are
+        masked, so the cap changes nothing on any live row."""
+        if not (self.paged and self.fused_decode):
+            return None
+        need = 1
+        for req in self.active.values():
+            need = max(need, len(req.prompt) + max(len(req.generated), 1))
+        pages = -(-need // self.page_size)
+        t = 1 << max(pages - 1, 0).bit_length()
+        return min(t, self.n_ptab) * self.page_size
+
+    # -- paged bookkeeping ---------------------------------------------------
+    def _try_reserve(self, req: Request):
+        """Radix-match the prompt (pins the shared pages) and allocate the
+        rest, evicting LRU tree leaves on shortfall. Returns (skip, pages)
+        or None (the request stays queued). A request that can never fit
+        raises."""
+        ps = self.page_size
+        plen = len(req.prompt)
+        last_write = min(plen + req.max_new_tokens - 2, self.max_len - 1)
+        need = last_write // ps + 1
+        if need > self.pool.total_pages:
+            raise ValueError(
+                "request needs more pages than the pool holds "
+                f"(prompt {plen} + budget {req.max_new_tokens}, "
+                f"{self.pool.total_pages} pages)")
+        pages, skip = self.radix.match(req.prompt)
+        # all_or_nothing: an admission that fails anyway must not destroy
+        # cached prefixes the next requests would reuse.
+        fresh = self.pool.alloc(
+            need - len(pages),
+            evict=lambda k: self.radix.evict(k, all_or_nothing=True))
+        if fresh is None:
+            self.radix.release(pages)
+            return None
+        return skip, pages + fresh
+
+    def _assign_page_tables(self, admits) -> None:
+        rows = np.zeros((len(admits), self.n_ptab), np.int32)
+        ids = np.zeros((len(admits),), np.int32)
+        for r, (slot, _req, _skip, pages) in enumerate(admits):
+            ids[r] = slot
+            rows[r, : len(pages)] = pages
+        model_lib.set_page_rows(self.state.cache, ids, rows)
+
+    def _teardown_slots(self, freed: List[int]) -> None:
+        """Reset freed slots' page tables to all-trash BEFORE the next
+        decode (a stale slot keeps writing, and its pages may be handed
+        out again) and drop their page references."""
+        model_lib.set_page_rows(
+            self.state.cache, np.asarray(freed, np.int32),
+            np.zeros((len(freed), self.n_ptab), np.int32))
+        for slot in freed:
+            for p in self._slot_pages.pop(slot, []):
+                self.pool.release(p)
+
+    def _register_admit(self, slot: int, req: Request, skip: int,
+                        pages) -> None:
+        """Book an admitted paged request: its pages, the hit counters, and
+        its prompt's full pages indexed in the radix tree."""
+        self._slot_pages[slot] = list(pages)
+        self._prompt_tokens += len(req.prompt)
+        self._prefix_tokens += skip
+        if skip:
+            self._prefix_hits += 1
+        n_full = len(req.prompt) // self.page_size
+        if n_full:
+            self.radix.insert(req.prompt[: n_full * self.page_size],
+                              pages[:n_full])
+
     # -- request lifecycle ---------------------------------------------------
     def submit(self, req: Request) -> None:
         # Latency and TTFT are measured from submission, not construction.
         req.submit_t = time.monotonic()
+        req.skipped = 0
         self.queue.append(req)
 
     def step(self) -> List[Finished]:
-        """One engine step: FCFS admission into free slots, one prefill wave
-        per length bucket, one fused decode_and_sample, and a single
-        device->host copy of the new tokens and done masks."""
+        """One engine step: scheduler admission into free slots (with page
+        reservation on a paged engine), one prefill wave per length
+        bucket, one fused decode_and_sample, and a single device->host
+        copy of the new tokens and done masks."""
         had_active = bool(self.active)
+        tracker = self.sched.begin_step()
         free = [i for i in range(self.slots) if i not in self.active]
-        by_bucket: Dict[int, list] = {}
-        while free and self.queue:
-            req = self.queue.popleft()
+        picks = self.sched.pick(self.queue, len(free), tracker,
+                                self._try_reserve if self.paged else None)
+        admits = []
+        for req, (skip, pages) in picks:
             assert len(req.prompt) < self.max_len, \
                 "prompt longer than cache"
-            sb = bucket_for(len(req.prompt), self.max_len, self.min_bucket)
-            by_bucket.setdefault(sb, []).append((free.pop(0), req))
+            admits.append((free.pop(0), req, skip, pages))
+        if self.paged and admits:
+            self._assign_page_tables(admits)
+        by_bucket: Dict[int, list] = {}
+        for slot, req, skip, pages in admits:
+            sb = bucket_for(len(req.prompt) - skip, self.max_len,
+                            self.min_bucket)
+            by_bucket.setdefault(sb, []).append((slot, req, skip, pages))
         waves = []
         for sb in sorted(by_bucket):
             group = by_bucket[sb]
             waves.append((group, self._prefill_wave(sb, group)))
-            for slot, req in group:
+            for slot, req, skip, pages in group:
                 self.active[slot] = req
+                if self.paged:
+                    self._register_admit(slot, req, skip, pages)
         dec = None
-        sampled = [req for group, _ in waves for _, req in group]
+        sampled = [req for group, _ in waves for _, req, _, _ in group]
         if had_active or any(r.max_new_tokens > 1 for r in sampled):
             self.steps += 1
             dec = self._decode_and_sample()
@@ -201,13 +346,15 @@ class Engine:
         self.host_transfers += 1
         now = time.monotonic()
         finished: List[Finished] = []
+        freed: List[int] = []
         for w, (group, _) in enumerate(waves):
             tok, done = host[2 * w], host[2 * w + 1]
-            for r, (slot, req) in enumerate(group):
+            for r, (slot, req, _skip, _pages) in enumerate(group):
                 self._append_token(req, int(tok[r]), now)
                 if done[r]:
                     finished.append(self._finish(req, now))
                     del self.active[slot]
+                    freed.append(slot)
         if dec is not None:
             tok, done = host[-2], host[-1]
             for slot, req in list(self.active.items()):
@@ -215,6 +362,9 @@ class Engine:
                 if done[slot]:
                     finished.append(self._finish(req, now))
                     del self.active[slot]
+                    freed.append(slot)
+        if self.paged and freed:
+            self._teardown_slots(freed)
         return finished
 
     def _append_token(self, req: Request, tok: int, now: float) -> None:
@@ -244,8 +394,9 @@ class Engine:
             f"{len(self.active)} in flight after {max_steps} steps")
 
     def stats(self) -> Dict[str, float]:
-        """Throughput/latency aggregates (zero-request safe)."""
-        return {
+        """Throughput/latency aggregates (zero-request safe), and on a
+        paged engine the pool and radix counters."""
+        out = {
             "steps": float(self.steps),
             "host_transfers": float(self.host_transfers),
             "finished": float(self._finished_count),
@@ -255,3 +406,15 @@ class Engine:
             "ttft_p50_s": percentile(self._ttfts, 50),
             "ttft_p95_s": percentile(self._ttfts, 95),
         }
+        if self.paged:
+            out.update({
+                "pool_pages_total": float(self.pool.total_pages),
+                "pool_pages_in_use": float(self.pool.pages_in_use),
+                "pool_pages_free": float(self.pool.free_pages),
+                "radix_hit_rate": (self._prefix_tokens
+                                   / max(self._prompt_tokens, 1)),
+                "radix_hits": float(self._prefix_hits),
+                "radix_nodes": float(self.radix.nodes),
+                "radix_evictions": float(self.radix.evictions),
+            })
+        return out

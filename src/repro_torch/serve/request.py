@@ -17,6 +17,8 @@ class Request:
     temperature: float = 0.0
     generated: List[int] = dataclasses.field(default_factory=list)
     submit_t: float = dataclasses.field(default_factory=time.monotonic)
+    skipped: int = 0              # times a younger request was admitted
+                                  # first (serve/sched's starvation guard)
     first_token_t: float = 0.0    # wall time the first token landed (TTFT)
     last_token_t: float = 0.0     # wall time of the latest token
 
