@@ -60,7 +60,17 @@ on any fault:
              after the drain, K4 and K6 launched only in the kernel drain,
              one host transfer per step. Information only: how many
              streams equal a dense engine's drain of the same requests.
-10. train  — the same model and mode, remat="full", AdamW: run_loop for 3
+10. K5     — the split-K absorbed-MLA paged decode at deepseek-v3's decode
+             shape (4 rows, 128 heads, latent 512 + rope 64, bf16 pools of
+             16-token pages), tables of 1, 8 and 32 pages with ragged
+             lengths (0 included) and trash entries: within 1e-6 of the
+             plain version at n_splits 1, 2, 4 and 8 (bitwise expected:
+             both sum in float64); the n_splits that is fastest over the
+             three caps, kernel, plain and library (two gathers and
+             ``scaled_dot_product_attention``) times and the bound of the
+             live latent bytes and the f32 flops. K6 is also held bitwise
+             on the MLA pools.
+11. train  — the same model and mode, remat="full", AdamW: run_loop for 3
              steps of batch 4 x 256 from DataPipeline(kind="lm"), with a
              final checkpoint in a temporary directory. Per step: loss,
              grad norm, wall and host CPU seconds, K1 and K2 launches
@@ -70,8 +80,25 @@ on any fault:
              steps with the plain versions (step 0's loss bitwise, later
              losses within 1e-3), finite losses and norms, and the final
              checkpoint restoring bitwise.
+12. mla    — with qwen3's state freed: deepseek-v3 at full width cut to
+             its three dense layers (``get_config("deepseek-v3-671b",
+             n_layers=3)``: MLA, FFN 18432, vocab 129280, untied head;
+             random weights from --seed), TimeFloats ``mode="pallas"``.
+             K1 bitwise at every decode-step shape and K3 bitwise at
+             V = 129280 with threefry noise; a paged drain of the paged
+             phase's 8 requests through Engine(paged=True, slots=4,
+             max_len=512, page_size=16), with the kernels and then with
+             the plain versions (gates: identical first tokens, >= 6 of 8
+             identical streams, radix hits, a conserved pool, all-trash
+             tables, K5 launched 3 times per decode step and K6 6 times
+             per prefill wave, none in the plain drain); then a dense
+             engine drain of 4 requests (8 new tokens, one at temperature
+             0.8, so the threefry key chain runs on the card), kernels
+             against plain versions: identical streams. Prints the peak
+             device memory.
 
-The line before the last is the kernels' JSON record; the last line is
+The kernels' JSON record and then the card's name and power limit are
+printed on the two lines before the last; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
 ``python3 chip_smoke.py``.
 """
@@ -91,6 +118,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 SLOTS, MAX_LEN = 4, 512        # the main drain's engine
 PROMPT_LENS = (5, 60)          # shortest and longest prompt of the drain
 PAGE, PREFIX = 16, 48          # the paged drain's page size, shared prefix
@@ -110,6 +138,8 @@ K4_TOL = 1e-6
 K4_SPLITS = (1, 2, 4, 8)
 K4_CAPS = (1, 8, 32)           # table extents (pages) held and timed
 PAGED_MIN_SAME = 6             # of 8 paged streams, kernels vs plain
+K5_TOL = K4_TOL                # K5 against its plain version, the same way
+MLA_LAYERS = 3                 # deepseek-v3's dense layers (first_k_dense)
 
 
 class SmokeFailure(Exception):
@@ -364,12 +394,14 @@ def phase_k2(torch, cfg, seed: int) -> dict:
 
 
 def phase_k3(torch, cfg, seed: int) -> dict:
+    from repro_torch import random as rnd
     from repro_torch.kernels import sampling as ks
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     s, v = 4, cfg.vocab_size
     lg = (torch.randn(s, v, generator=gen, device="cuda") * 4).round() / 4
-    noise = (ks.gumbel_noise((s, v), gen, "cuda") * 2).round() / 2
+    noise = (rnd.gumbel(rnd.fold_in(rnd.PRNGKey(seed, "cuda"), torch.arange(
+        s, device="cuda")), (v,)) * 2).round() / 2
     temps = torch.tensor([0.0, 0.8, 1.0, 0.0], device="cuda")
     # Exact ties at the top of every row, after scaling and noise.
     for r, (i, j) in enumerate([(900, 77), (150000, 4321), (12, 11), (5, 6)]):
@@ -872,6 +904,321 @@ def phase_train(torch, cfg, seed: int) -> dict:
     return launches
 
 
+def k5_case(torch, cfg, gen, n_tab: int):
+    """Decode-shape MLA operands with an ``n_tab``-page table: ragged
+    lengths (an empty row, a full one, a single page, a random one) and
+    trash entries past each row's extent; q_rope in bf16 as ``rope``
+    returns it."""
+    m = cfg.mla
+    p = SLOTS * (MAX_LEN // PAGE) + 1
+    h, c, r = cfg.n_heads, m.kv_lora_rank, m.qk_rope_head_dim
+    q_lat = torch.randn(SLOTS, h, c, generator=gen, device="cuda") * 0.05
+    q_rope = torch.randn(SLOTS, h, r, generator=gen,
+                         device="cuda").bfloat16()
+    cpool = torch.randn(p, PAGE, c, generator=gen, device="cuda").bfloat16()
+    rpool = torch.randn(p, PAGE, r, generator=gen, device="cuda").bfloat16()
+    cap = n_tab * PAGE
+    rnd = int(torch.randint(1, cap + 1, (1,), generator=gen,
+                            device="cuda").item())
+    lens = torch.tensor([0, cap, min(PAGE, cap), rnd], dtype=torch.int32,
+                        device="cuda")
+    ids = torch.randperm(p - 1, generator=gen, device="cuda")[:SLOTS * n_tab]
+    pt = (ids + 1).to(torch.int32).reshape(SLOTS, n_tab)
+    live = (lens.to(torch.int64) + PAGE - 1) // PAGE
+    pt[torch.arange(n_tab, device="cuda")[None, :] >= live[:, None]] = 0
+    return q_lat, q_rope, cpool, rpool, pt, lens
+
+
+def phase_k5(torch, cfg, seed: int) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged as kp
+    from repro_torch.kernels import paged_attn as kpa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    m = cfg.mla
+    h, c, r = cfg.n_heads, m.kv_lora_rank, m.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    times = {ns: 0.0 for ns in K4_SPLITS}
+    worst, exact, rec = 0.0, True, None
+    for n_tab in K4_CAPS:
+        ops = k5_case(torch, cfg, gen, n_tab)
+        lens = ops[-1]
+        for ns in K4_SPLITS:
+            got = kpa.paged_decode_mla(*ops, scale=scale, n_splits=ns)
+            want = kpa._combine(*kpa._mla_plain(
+                *ops, scale=scale, n_splits=kpa._norm_splits(
+                    ns, n_tab, page_size=PAGE, heads=h, head_dim=c + r)))
+            torch.cuda.synchronize()
+            err = ((got - want).abs().max()
+                   / want.abs().max().clamp_min(1.0)).item()
+            worst = max(worst, err)
+            exact = exact and torch.equal(got, want)
+            check(err <= K5_TOL and bool(torch.isfinite(got).all())
+                  and bool((got[lens == 0] == 0).all()),
+                  f"K5 cap={n_tab} n_splits={ns}: max rel {err} > {K5_TOL}"
+                  " or a length-0 row not exactly 0")
+        if n_tab == 32:  # a covering prefix is neutral at one split
+            short = lens.clamp_max(8 * PAGE)
+            full = kpa.paged_decode_mla(*ops[:5], short, scale=scale,
+                                        n_splits=1)
+            capped = kpa.paged_decode_mla(*ops[:4], ops[4][:, :8], short,
+                                          scale=scale, n_splits=1)
+            torch.cuda.synchronize()
+            check(torch.equal(full, capped), "K5: an 8-page prefix of a "
+                  "32-page table changes the output")
+            # K6 on the MLA pools (the paged prefill's gathers).
+            for pool in ops[2:4]:
+                check(torch.equal(kp.gather_pages(pool, ops[4]).view(
+                    torch.int16), kp.gather_pages_plain(pool, ops[4]).view(
+                    torch.int16)), f"K6 on an MLA pool {tuple(pool.shape)}")
+        row = []
+        for ns in K4_SPLITS:
+            t = time_ms(torch, lambda: kpa.paged_decode_mla(
+                *ops, scale=scale, n_splits=ns), reps=50)
+            times[ns] += t
+            row.append(f"{ns}:{t:.4f}")
+        print(f"K5 cap={n_tab:2d} pages lengths={lens.tolist()} ms by "
+              f"n_splits {' '.join(row)}", flush=True)
+        if n_tab == 8:
+            rec = ops
+    ns_best = min(K4_SPLITS, key=lambda n: times[n])
+    print(f"K5 n_splits winner over caps {K4_CAPS}: {ns_best} (key "
+          f"p{PAGE}_h{h}_d{c + r}_r{SLOTS}); bitwise={exact} max "
+          f"|diff|/max(1,|plain|) {worst:.3e} (tolerance {K5_TOL}); K6 "
+          f"bitwise on the MLA pools", flush=True)
+
+    q_lat, q_rope, cpool, rpool, pt, lens = rec
+    ms = time_ms(torch, lambda: kpa.paged_decode_mla(
+        *rec, scale=scale, n_splits=ns_best), reps=50)
+    plain = time_ms(torch, lambda: kpa._combine(*kpa._mla_plain(
+        *rec, scale=scale, n_splits=ns_best)), reps=10)
+    s_len = pt.shape[1] * PAGE
+    mask = (torch.arange(s_len, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    q = torch.cat([q_lat, q_rope.float()], dim=-1)[:, :, None, :]
+
+    def library():
+        ck = cpool[pt].reshape(SLOTS, 1, s_len, c).float()
+        kr = rpool[pt].reshape(SLOTS, 1, s_len, r).float()
+        return F.scaled_dot_product_attention(
+            q, torch.cat([ck, kr], dim=-1), ck, attn_mask=mask, scale=scale,
+            enable_gqa=True)
+
+    lib = time_ms(torch, library, reps=50)
+    live = int(lens.sum().item())
+    nbytes = (live * (c + r) * cpool.element_size() + q_lat.numel() * 4
+              + q_rope.numel() * 2 + SLOTS * h * c * 4 + pt.numel() * 4
+              + SLOTS * 4)
+    b_ms, b_by = bound(nbytes, 2.0 * h * live * (c + r + c),
+                       F32_FLOPS_PER_S)
+    per = cfg.n_layers
+    print(f"K5 cap=8 pages n_splits={ns_best} live_positions={live} "
+          f"KiB_moved={nbytes / 1024:.1f} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"library_ms(2 gathers + sdpa)={lib:.4f} bound_ms={b_ms:.5f} "
+          f"({b_by}) share_of_bound={b_ms / ms:.4f} "
+          f"launches_per_decode_step={per}; per decode step ms="
+          f"{per * ms:.4f} plain_ms={per * plain:.4f} "
+          f"library_ms={per * lib:.4f} bound_ms={per * b_ms:.5f}",
+          flush=True)
+    return {"name": f"K5 paged_decode_mla (one decode step: {per} "
+                    "launches, 8-page cap)",
+            "route": "cuda", "source": "src/repro_torch/csrc/paged_attn_mla.cu",
+            "replaces": "src/repro/kernels/paged_attn.py:288",
+            "max_abs_err": worst, "ms": per * ms, "plain_ms": per * plain,
+            "bound_ms": per * b_ms, "bound_by": b_by,
+            "library_ms": per * lib}
+
+
+def mla_k1_shapes(cfg) -> dict:
+    """(K, N) of every dense call of an MLA decode step and its count:
+    wq_a, wq_b, wkv_a and wo (dense_in) of the mixer, gate, up and down of
+    the MLP, then the untied head. wkv_b is read by f32 einsums."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    f = cfg.moe.dense_d_ff
+    per_layer = [(d, m.q_lora_rank),
+                 (m.q_lora_rank, h * (m.qk_nope_head_dim
+                                      + m.qk_rope_head_dim)),
+                 (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                 (h * m.v_head_dim, d), (d, f), (d, f), (f, d)]
+    shapes: dict = {}
+    for kn in per_layer:
+        shapes[kn] = shapes.get(kn, 0) + cfg.n_layers
+    shapes[(d, cfg.vocab_size)] = 1
+    return shapes
+
+
+def _mla_dense_requests(cfg, seed: int):
+    """4 requests of 5-60 tokens, 8 new tokens each, uid 2 at temperature
+    0.8."""
+    import numpy as np
+
+    from repro_torch.serve.request import Request
+
+    rng = np.random.default_rng(seed + 7)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, 4)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(n))
+                    .astype(np.int32), max_new_tokens=DENSE_NEW,
+                    temperature=0.8 if i == 2 else 0.0)
+            for i, n in enumerate(lens)]
+
+
+def phase_mla(torch, cfg, seed: int) -> dict:
+    from repro_torch import random as rnd
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import timefloats as tf
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels import paged as kp
+    from repro_torch.kernels import paged_attn as kpa
+    from repro_torch.kernels import sampling as ks
+    from repro_torch.kernels import timefloats_matmul as km
+    from repro_torch.models import model
+    from repro_torch.serve.engine import Engine
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in tree_lib.leaves(params))
+    print(f"mla: init {cfg.name} ({cfg.n_layers} dense layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, FFN {cfg.moe.dense_d_ff}, "
+          f"vocab {cfg.vocab_size}, {n_par / 1e9:.3f}e9 parameters) in "
+          f"{time.monotonic() - t_phase:.1f}s; peak_mem_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+
+    # K1 at every decode-step shape, K3 at this vocab with threefry noise.
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    for (k, n), count in mla_k1_shapes(cfg).items():
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        x = torch.randn(SLOTS, k, generator=gen, device="cuda").bfloat16()
+        qx = tf.quantize_input(tf._pow2_prescale(x, cfg.tf)[0], cfg.tf)
+        qw = tf.quantize_weight(tf._pow2_prescale(w, cfg.tf)[0], cfg.tf)
+        a = ops.padded_operands(qx, qw)
+        got = km.timefloats_matmul_quantized(*a, cfg=cfg.tf)
+        check(torch.equal(got, km.timefloats_matmul_plain(*a, cfg.tf)),
+              f"K1 MLA decode M={SLOTS} K={k} N={n}: kernel != plain")
+        del w, qw, a
+    lg = torch.randn(SLOTS, cfg.vocab_size, generator=gen, device="cuda")
+    temps = torch.tensor([0.0, 0.8, 1.0, 0.0], device="cuda")
+    keys = ks._fold3(rnd.PRNGKey(seed, "cuda"), torch.arange(
+        SLOTS, device="cuda"), torch.arange(SLOTS, device="cuda"),
+        torch.ones(SLOTS, dtype=torch.int32, device="cuda"))
+    noise = rnd.gumbel(keys, (cfg.vocab_size,))
+    check(torch.equal(ks.sample(lg, noise, temps),
+                      ks.sample_plain(lg, noise, temps)),
+          f"K3 at V={cfg.vocab_size}: kernel != plain")
+    torch.cuda.synchronize()
+    print(f"mla: K1 bitwise at the {len(mla_k1_shapes(cfg))} decode-step "
+          f"shapes (M={SLOTS}); K3 bitwise at V={cfg.vocab_size} with "
+          "threefry noise", flush=True)
+
+    counters = {"K1": km.timefloats_matmul_quantized, "K3": ks.sample,
+                "K4": kpa.paged_decode_attention, "K5": kpa.paged_decode_mla,
+                "K6": kp.gather_pages}
+    waves = [0]
+    prefill_pages = model.prefill_into_pages
+
+    def counted(*a, **kw):
+        waves[0] += 1
+        return prefill_pages(*a, **kw)
+
+    def reset():
+        waves[0] = 0
+        for fn in counters.values():
+            fn.launches = 0
+
+    model.prefill_into_pages = counted
+    try:
+        reset()
+        eng, streams, wall, cpu = _paged_drain(torch, params, cfg, seed)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        n_waves = waves[0]
+        reset()
+        with dispatch.override(kernels=False):
+            ref_eng, ref, ref_wall, _ = _paged_drain(torch, params, cfg,
+                                                     seed)
+        plain_launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        model.prefill_into_pages = prefill_pages
+    st = eng.stats()
+    new = int(st["new_tokens"])
+    print(f"mla paged: drained {int(st['finished'])} requests, {new} tokens "
+          f"in {wall:.2f}s: tok/s={new / wall:.2f} "
+          f"wall_ms_per_step={1e3 * wall / eng.steps:.1f} "
+          f"host_cpu_ms_per_step={1e3 * cpu / eng.steps:.1f} "
+          f"host_cpu_share={cpu / wall:.3f} "
+          f"ttft_p50_s={st['ttft_p50_s']:.4f} steps={eng.steps} "
+          f"prefill_waves={n_waves} host_transfers={eng.host_transfers} "
+          f"launches={launches} peak_mem_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+    print("mla paged: " + " ".join(f"{k}={st[k]:g}" for k in (
+        "radix_hits", "radix_hit_rate", "radix_nodes", "radix_evictions",
+        "pool_pages_total", "pool_pages_in_use", "pool_pages_free")),
+        flush=True)
+    same = sorted(u for u in streams if u in ref and streams[u] == ref[u])
+    firsts = sorted(streams) == sorted(ref) and all(
+        streams[u][0] == ref[u][0] for u in streams)
+    print(f"mla paged: reference drain (plain versions) in {ref_wall:.2f}s;"
+          f" identical streams {len(same)}/8 (gate >= {PAGED_MIN_SAME}); "
+          f"identical first tokens {firsts}", flush=True)
+    for u in sorted(set(streams) - set(same)):
+        step = next((i for i, (a, b) in enumerate(zip(streams[u],
+                                                      ref.get(u, [])))
+                     if a != b), None)
+        print(f"mla paged: uid {u} first differs at token {step}",
+              flush=True)
+    layers = cfg.n_layers
+    check(sorted(streams) == list(range(8))
+          and all(len(t) == 16 for t in streams.values()),
+          "mla paged: 8 requests of 16 tokens")
+    check(firsts, "mla paged: first tokens differ between kernels and plain")
+    check(len(same) >= PAGED_MIN_SAME, f"mla paged: only {len(same)}/8 "
+          "streams identical")
+    check(launches["K5"] == layers * eng.steps and launches["K4"] == 0,
+          f"mla paged: {launches['K5']} K5 launches in {eng.steps} steps")
+    check(n_waves > 0 and launches["K6"] == 2 * layers * n_waves,
+          f"mla paged: {launches['K6']} K6 launches in {n_waves} waves")
+    check(launches["K1"] > 0 and launches["K3"] > 0,
+          f"mla paged: launches {launches}")
+    check(st["radix_hits"] >= 1, "mla paged: no radix hit")
+    check(eng.pool.conserved() and ref_eng.pool.conserved(),
+          "mla paged: pool not conserved")
+    check(not bool(eng.state.cache.layers[0].pt.any()),
+          "mla paged: page tables not all-trash after the drain")
+    check(all(v == 0 for v in plain_launches.values()),
+          f"mla paged: the plain drain launched {plain_launches}")
+    del eng, ref_eng
+
+    def dense_drain():
+        e = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed)
+        for req in _mla_dense_requests(cfg, seed):
+            e.submit(req)
+        t0 = time.monotonic()
+        out = {f.uid: [int(t) for t in f.tokens]
+               for f in e.run_until_drained()}
+        torch.cuda.synchronize()
+        return e, out, time.monotonic() - t0
+
+    reset()
+    d_eng, dense, d_wall = dense_drain()
+    d_launches = {k: fn.launches for k, fn in counters.items()}
+    with dispatch.override(kernels=False):
+        _, d_ref, d_ref_wall = dense_drain()
+    print(f"mla dense: drained 4 requests ({DENSE_NEW} new tokens, uid 2 "
+          f"at temperature 0.8) in {d_wall:.2f}s, steps={d_eng.steps}, "
+          f"launches={d_launches}; plain versions in {d_ref_wall:.2f}s; "
+          f"streams identical={dense == d_ref}; peak_mem_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+    check(sorted(dense) == list(range(4))
+          and all(len(t) == DENSE_NEW for t in dense.values()),
+          "mla dense: 4 requests of 8 tokens")
+    check(dense == d_ref, "mla dense: kernel and plain drains differ")
+    check(d_launches["K1"] > 0 and d_launches["K3"] > 0
+          and d_launches["K5"] == 0, f"mla dense: launches {d_launches}")
+    print(f"mla: phase in {time.monotonic() - t_phase:.1f}s", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -904,16 +1251,19 @@ def main(argv=None) -> int:
     secs = _build.build(_build.SOURCES)
     for name in _build.SOURCES:
         _build.load(name)
-    print(f"build: K1, K2, K3, K4 and K6 built from src/repro_torch/csrc "
-          f"in {secs:.1f}s", flush=True)
+    print(f"build: K1, K2, K3, K4, K5 and K6 built from "
+          f"src/repro_torch/csrc in {secs:.1f}s", flush=True)
 
     cfg = get_config("qwen3-0.6b", tf=TFConfig(mode="pallas"))
+    cfg_mla = get_config("deepseek-v3-671b", n_layers=MLA_LAYERS,
+                         tf=TFConfig(mode="pallas"))
     try:
         k1_serve, k1_train = phase_k1(torch, cfg, args.seed)
         k2 = phase_k2(torch, cfg, args.seed)
         k3 = phase_k3(torch, cfg, args.seed)
         k6 = phase_k6(torch, cfg, args.seed)
         k4 = phase_k4(torch, cfg, args.seed)
+        k5 = phase_k5(torch, cfg_mla, args.seed)
         t0 = time.monotonic()
         params = model.init(cfg, args.seed, device="cuda")
         torch.cuda.synchronize()
@@ -924,17 +1274,20 @@ def main(argv=None) -> int:
         paged = phase_paged_serve(torch, cfg, args.seed, params)
         del params
         train = phase_train(torch, cfg, args.seed)
+        torch.cuda.empty_cache()
+        mla = phase_mla(torch, cfg_mla, args.seed)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
     k1_serve["launches"], k3["launches"] = serve["K1"], serve["K3"]
     k1_train["launches"], k2["launches"] = train["K1"], train["K2"]
     k4["launches"], k6["launches"] = paged["K4"], paged["K6"]
+    k5["launches"] = mla["K5"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"total: {time.monotonic() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in (
-        k1_serve, k1_train, k2, k3, k4, k6)]}))
+        k1_serve, k1_train, k2, k3, k4, k5, k6)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig, reduced_for_smoke  # noqa: F401
 
 _MODULES: Dict[str, str] = {
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "qwen3-0.6b": "repro_torch.configs.qwen3_0p6b",
 }
 

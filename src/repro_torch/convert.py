@@ -3,9 +3,11 @@
 ``from_jax_params(np_tree, cfg, device)`` takes the tree that
 ``repro.models.model.init`` returns, already turned into numpy arrays by
 the caller (this package never imports JAX), and returns the port's
-parameters. The reference stacks each layer group's leaves along a leading
-``(layers,)`` dim; here they are sliced into one dict per layer.
-``from_jax_paged_cache`` does the same for a paged serving cache. bf16
+parameters: the dense family, or a ``moe``-family tree whose layers are all
+dense (deepseek-v3's first layers, MLA leaves included). The reference
+stacks each layer group's leaves along a leading ``(layers,)`` dim; here
+they are sliced into one dict per layer. ``from_jax_cache`` and
+``from_jax_paged_cache`` do the same for a serving cache, GQA or MLA. bf16
 leaves cross as a uint16 bit view (or numpy's ``bfloat16`` extension
 dtype, which is viewed the same way).
 """
@@ -34,10 +36,13 @@ def _map(tree: Any, fn) -> Any:
 
 def from_jax_params(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """Reference parameter tree (numpy leaves) -> port parameters."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family not in ("dense", "moe") or "moe" in cfg.layer_kinds():
+        raise NotImplementedError(f"{cfg.name}: only dense layers are "
+                                  "ported")
     layers = []
     for group in np_tree["groups"]:
+        if group.get("kind_", "dense") != "dense":
+            raise NotImplementedError("only dense layer groups are ported")
         gp = group.get("params", group)
         count = int(np.asarray(gp["norm1"]["scale"]).shape[0])
         for i in range(count):
@@ -54,30 +59,52 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     return out
 
 
-def from_jax_paged_cache(np_cache: Any, device="cuda"):
-    """Reference paged ``ModelCache`` with numpy leaves (for instance the
-    reference cache mapped through ``np.asarray`` leaf by leaf) -> the
-    port's. Each of its ``groups`` holds stacked pools ``k``/``v``
-    ``(L, P, page, Hkv, D)`` and tables ``pt (L, B, T)``, which the
-    reference replicates over L; the port keeps one table for every layer,
-    so the copies must agree."""
-    from repro_torch.models.attention import PagedKVCache
-    from repro_torch.models.model import ModelCache
+def _cache_layers(np_cache: Any, device, paged: bool):
+    """Per-layer caches and lengths from a reference ``ModelCache``; paged
+    groups' tables (replicated over L in the reference) become one shared
+    table, so the copies must agree."""
+    from repro_torch.models.attention import KVCache, PagedKVCache
+    from repro_torch.models.mla import MLACache, PagedMLACache
 
     layers = []
     pt = None
     for g in np_cache.groups:
-        tables = np.asarray(g.pt)
-        if not (tables == tables[:1]).all():
-            raise ValueError("the page tables differ across layers")
-        if pt is None:
-            pt = _tensor(tables[0].astype(np.int32), device)
-        elif not np.array_equal(pt.cpu().numpy(), tables[0]):
-            raise ValueError("the page tables differ across layer groups")
-        k, v = np.asarray(g.k), np.asarray(g.v)
-        layers += [PagedKVCache(k=_tensor(k[i], device),
-                                v=_tensor(v[i], device), pt=pt)
-                   for i in range(k.shape[0])]
-    return ModelCache(layers=tuple(layers),
-                      lengths=_tensor(np.asarray(np_cache.lengths,
-                                                 np.int32), device))
+        fields = [f for f in g._fields if f != "pt"]
+        mla = "c_kv" in fields
+        cls = ((PagedMLACache if mla else PagedKVCache) if paged
+               else (MLACache if mla else KVCache))
+        if paged:
+            tables = np.asarray(g.pt)
+            if not (tables == tables[:1]).all():
+                raise ValueError("the page tables differ across layers")
+            if pt is None:
+                pt = _tensor(tables[0].astype(np.int32), device)
+            elif not np.array_equal(pt.cpu().numpy(), tables[0]):
+                raise ValueError("the page tables differ across layer groups")
+        stacks = [np.asarray(getattr(g, f)) for f in fields]
+        for i in range(stacks[0].shape[0]):
+            bufs = [_tensor(a[i], device) for a in stacks]
+            layers.append(cls(*bufs, pt) if paged else cls(*bufs))
+    return tuple(layers), _tensor(np.asarray(np_cache.lengths, np.int32),
+                                  device)
+
+
+def from_jax_cache(np_cache: Any, device="cuda"):
+    """Reference slot ``ModelCache`` with numpy leaves -> the port's. Each
+    group holds stacked ``k``/``v`` ``(L, B, S_max, Hkv, D)`` or MLA
+    ``c_kv``/``k_rope`` ``(L, B, S_max, C|R)``."""
+    from repro_torch.models.model import ModelCache
+
+    return ModelCache(*_cache_layers(np_cache, device, paged=False))
+
+
+def from_jax_paged_cache(np_cache: Any, device="cuda"):
+    """Reference paged ``ModelCache`` with numpy leaves (for instance the
+    reference cache mapped through ``np.asarray`` leaf by leaf) -> the
+    port's. Each of its ``groups`` holds stacked pools, ``k``/``v``
+    ``(L, P, page, Hkv, D)`` or MLA ``c_kv``/``k_rope`` ``(L, P, page,
+    C|R)``, and tables ``pt (L, B, T)``, which the reference replicates
+    over L; the port keeps one table for every layer."""
+    from repro_torch.models.model import ModelCache
+
+    return ModelCache(*_cache_layers(np_cache, device, paged=True))

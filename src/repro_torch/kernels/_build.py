@@ -53,6 +53,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "paged_attn_gqa": [_P] * 9 + [_I] * 9 + [_L, _F, _I, _P],
         # G, Dk, span -> bytes of shared memory
         "paged_attn_gqa_smem": [_I] * 3},
+    "paged_attn_mla": {
+        # q_lat, q_rope, cp, rp, pt, lengths, m, l, acc, out, B, H, C, R,
+        # P, page, ts, S, pt_stride, scale, pool_bf16, stream
+        "paged_attn_mla": [_P] * 10 + [_I] * 8 + [_L, _F, _I, _P],
+        # C, R, span -> bytes of shared memory
+        "paged_attn_mla_smem": [_I] * 3},
 }
 SOURCES = tuple(SIGNATURES)  # every csrc/<name>.cu, built together
 

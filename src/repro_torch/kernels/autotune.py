@@ -1,9 +1,10 @@
-"""Split count for the fused paged-attention kernel K4 (port of
+"""Split count for the fused paged-attention kernels K4 and K5 (port of
 ``repro.kernels.autotune``'s lookup, DESIGN.md §9).
 
 The only tunable of ``kernels/paged_attn.py`` is ``n_splits``: how many
-blocks share one row's page-table walk per kv-head. More splits buy
-parallelism on the card's 132 SMs and pay a combine. ``chip_smoke.py``
+blocks share one row's page-table walk (per kv-head for K4, per group of
+heads for K5). More splits buy parallelism on the card's 132 SMs and pay
+a combine (for K5 one (H, C) float32 state per split and row). ``chip_smoke.py``
 times the candidates at the serving decode shape on the card and prints
 the winner; the winners are committed to ``autotune_h100.json`` beside
 this module, a record the port owns. It never reads ``BENCH_kernel.json``:

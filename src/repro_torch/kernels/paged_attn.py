@@ -34,7 +34,15 @@ both by its summation order's rounding: greedy streams through a
 bf16/TimeFloats model amplify such ulps, and only a bitwise kernel keeps
 its drain identical to the plain drain.
 
-The MLA entry point (``paged_decode_mla``, K5) comes with the MLA slice.
+K5, the absorbed-MLA entry point (:func:`paged_decode_mla`, CUDA source
+``csrc/paged_attn_mla.cu``), replaces ``_mla_kernel`` / ``_mla_pallas``:
+latent and rope queries against the ``(P, page, C)`` / ``(P, page, R)``
+pools, scores ``(q_lat·c_kv + q_rope·k_rope)·scale``, values the c_kv
+latents. Its plain version (:func:`_mla_plain`, through
+:func:`_attend_block_mla`) runs the reference's single-group MQA over the
+concatenated C+R features through the GQA block above, and shares
+:func:`_combine`; the same float64 accumulation holds in both, and its
+counter is ``paged_decode_mla.launches``.
 """
 from __future__ import annotations
 
@@ -190,3 +198,119 @@ def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: absorbed-MLA decode (MQA in latent space)
+# ---------------------------------------------------------------------------
+
+
+def _attend_block_mla(q_lat: Tensor, q_rope: Tensor, ckv: Tensor,
+                      kr: Tensor, start: int, length: Tensor, scale: float):
+    """One MLA split for every row, as the reference's: q_lat (B, H, C),
+    q_rope (B, H, R), ckv (B, J, C), kr (B, J, R), float32, through the
+    GQA block as single-group MQA over the concatenated C+R features.
+    Returns m, l (B, H) and acc (B, H, C)."""
+    q = torch.cat([q_lat, q_rope], dim=-1)[:, None]   # (B, 1, H, C+R)
+    k = torch.cat([ckv, kr], dim=-1)[:, :, None]      # (B, J, 1, C+R)
+    v = ckv[:, :, None]                               # (B, J, 1, C)
+    m, l, acc = _attend_block_gqa(q, k, v, start, length, scale)
+    return m[:, 0], l[:, 0], acc[:, 0]
+
+
+def _mla_plain(q_lat: Tensor, q_rope: Tensor, ckv_pool: Tensor,
+               kr_pool: Tensor, pt: Tensor, lengths: Tensor, *,
+               scale: float, n_splits: int):
+    """Split state (m, l (B, S, H), acc (B, S, H, C)) as the reference's
+    ``_mla_ref`` computes it."""
+    b, _, c = q_lat.shape
+    r = q_rope.shape[-1]
+    page = ckv_pool.shape[1]
+    ts = pt.shape[1] // n_splits
+    qlf = q_lat.to(torch.float32)
+    qrf = q_rope.to(torch.float32)
+    lengths = lengths.to(torch.int32)
+    ms, ls, accs = [], [], []
+    for s in range(n_splits):
+        pts = pt[:, s * ts:(s + 1) * ts].to(torch.int64)
+        cs = ckv_pool[pts].to(torch.float32).reshape(b, ts * page, c)
+        rs = kr_pool[pts].to(torch.float32).reshape(b, ts * page, r)
+        m, l, acc = _attend_block_mla(qlf, qrf, cs, rs, s * ts * page,
+                                      lengths, scale)
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    return torch.stack(ms, 1), torch.stack(ls, 1), torch.stack(accs, 1)
+
+
+def _mla_kernel(q_lat: Tensor, q_rope: Tensor, ckv_pool: Tensor,
+                kr_pool: Tensor, pt: Tensor, lengths: Tensor, *,
+                scale: float, n_splits: int) -> Tensor:
+    """Launch K5 (split kernel + combine) on CUDA tensors."""
+    dev = q_lat.device
+    if not all(t.is_cuda and t.device == dev
+               for t in (q_rope, ckv_pool, kr_pool, pt, lengths)):
+        raise ValueError("all operands must lie on the same CUDA device")
+    if ckv_pool.dtype != kr_pool.dtype or ckv_pool.dtype not in (
+            torch.bfloat16, torch.float32):
+        raise TypeError("ckv_pool and kr_pool must both be bfloat16 or "
+                        "float32")
+    if pt.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("page_table and lengths must be int32")
+    if not (ckv_pool.is_contiguous() and kr_pool.is_contiguous()
+            and lengths.is_contiguous() and pt.stride(1) == 1):
+        raise ValueError("pools and lengths must be contiguous and the "
+                         "page table unit-strided along T")
+    b, h, c = q_lat.shape
+    r = q_rope.shape[-1]
+    p, page = ckv_pool.shape[:2]
+    if c > 512 or r > 128:
+        raise ValueError(f"K5 takes C <= 512 and R <= 128; got C={c} R={r}")
+    lib = _build.load("paged_attn_mla")
+    ts = pt.shape[1] // n_splits
+    smem = lib.paged_attn_mla_smem(c, r, ts * page)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"a split of {ts * page} positions needs {smem} "
+                         "bytes of shared memory; raise n_splits")
+    qlf = q_lat.to(torch.float32).contiguous()
+    qrf = q_rope.to(torch.float32).contiguous()
+    m = torch.empty((b, n_splits, h), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    acc = torch.empty((b, n_splits, h, c), dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, c), dtype=torch.float32, device=dev)
+    err = lib.paged_attn_mla(
+        qlf.data_ptr(), qrf.data_ptr(), ckv_pool.data_ptr(),
+        kr_pool.data_ptr(), pt.data_ptr(), lengths.data_ptr(), m.data_ptr(),
+        l.data_ptr(), acc.data_ptr(), out.data_ptr(), b, h, c, r, p, page,
+        ts, n_splits, pt.stride(0), scale,
+        int(ckv_pool.dtype == torch.bfloat16), _build.stream_ptr())
+    _build.check(err, "paged_attn_mla")
+    paged_decode_mla.launches += 1
+    return out
+
+
+def paged_decode_mla(q_lat: Tensor, q_rope: Tensor, ckv_pool: Tensor,
+                     kr_pool: Tensor, page_table: Tensor, lengths: Tensor, *,
+                     scale: float, n_splits: Optional[int] = None) -> Tensor:
+    """Fused paged absorbed-MLA decode.
+
+    q_lat (B, H, C) (queries absorbed into the latent space), q_rope
+    (B, H, R); pools (P, page, C) / (P, page, R); page_table (B, T) int32;
+    lengths (B,) int32. scores = (q_lat·c_kv + q_rope·k_rope)·scale, values
+    are the c_kv latents. Returns the latent attention output (B, H, C)
+    float32 (the caller applies W_v_b). ``scale`` is required: it depends
+    on the pre-absorption head dims (nope + rope), not on C. A CUDA q_lat
+    launches K5 (or raises); a CPU one runs the plain version."""
+    b, h, c = q_lat.shape
+    ns = _norm_splits(n_splits, page_table.shape[1],
+                      page_size=ckv_pool.shape[1], heads=h,
+                      head_dim=c + q_rope.shape[-1], rows=b)
+    if dispatch.use_kernel(q_lat):
+        return _mla_kernel(q_lat, q_rope, ckv_pool, kr_pool, page_table,
+                           lengths, scale=float(scale), n_splits=ns)
+    return _combine(*_mla_plain(q_lat, q_rope, ckv_pool, kr_pool,
+                                page_table, lengths, scale=float(scale),
+                                n_splits=ns))
+
+
+paged_decode_mla.launches = 0

@@ -7,20 +7,20 @@ sampling law is the reference's Gumbel-max form, one masked argmax per slot:
     categorical(lg / t)  ==  argmax(lg / t + gumbel noise)
 
 Rows with ``t <= 0`` take the plain argmax, ties to the lowest index
-(:func:`argmax_low`). The noise is an input: the engine draws it with a
-``torch.Generator``, so temperature streams match the reference in
-distribution only (its threefry ``fold_in`` key chain is not ported), while
-greedy rows match it bitwise.
+(:func:`argmax_low`). The noise is an input of the kernel;
+:func:`sample_tokens` draws it as the reference does, ``gumbel`` of the
+per-row key ``fold_in(fold_in(fold_in(key, row), tag), counter)``
+(``repro_torch.random``), so tempered streams match the reference's token
+for token, as greedy ones do.
 
 Beside the kernel: its plain version (:func:`sample_plain`) and a launch
 counter, ``sample.launches``.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
+from repro_torch import random as rnd
 from repro_torch.kernels import _build, dispatch
 
 
@@ -71,19 +71,19 @@ def sample(lg: torch.Tensor, noise: torch.Tensor,
 sample.launches = 0
 
 
-def gumbel_noise(shape, generator: Optional[torch.Generator],
-                 device) -> torch.Tensor:
-    """Standard Gumbel draws, ``-log(-log(u))`` with u in [tiny, 1)."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32,
-                   device=device)
-    u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+def _fold3(key: torch.Tensor, slot, tag, counter) -> torch.Tensor:
+    return rnd.fold_in(rnd.fold_in(rnd.fold_in(key, slot), tag), counter)
 
 
 def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
-                  generator: Optional[torch.Generator]) -> torch.Tensor:
+                  key: torch.Tensor, tags: torch.Tensor,
+                  counters: torch.Tensor) -> torch.Tensor:
     """Greedy/temperature sampling for a decode batch on device: logits
-    (S, V) float, temps (S,). Returns (S,) int32."""
+    (S, V) float, temps (S,), the engine's raw key (2,), per-row request
+    tags and sampling counters (S,). Row i's noise is ``gumbel`` of
+    ``_fold3(key, i, tags[i], counters[i])``. Returns (S,) int32."""
     lg = logits.to(torch.float32).contiguous()
-    noise = gumbel_noise(lg.shape, generator, lg.device)
+    s, v = lg.shape
+    rows = torch.arange(s, dtype=torch.int64, device=lg.device)
+    noise = rnd.gumbel(_fold3(key, rows, tags, counters), (v,))
     return sample(lg, noise, temps.to(torch.float32).contiguous())

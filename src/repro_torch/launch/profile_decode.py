@@ -1,9 +1,13 @@
 """Where a decode step of the port's serving path spends its time.
 
-Serves qwen3-0.6b at full width (random weights from ``--seed``, TimeFloats
+Serves ``--arch`` (qwen3-0.6b by default; ``--n-layers`` cuts its depth,
+as the reference's ``get_config`` overrides do, so ``--arch
+deepseek-v3-671b --n-layers 3`` runs deepseek-v3's three dense MLA layers)
+at full width (random weights from ``--seed``, TimeFloats
 ``mode="pallas"``, bf16 activations) through ``Engine(slots=4,
 max_len=512)``, dense by default and with ``--paged`` on the paged pool
-(16-token pages, fused split-K decode through K4): four 32-token prompts
+(16-token pages, fused split-K decode through K4, or K5 for MLA): four
+32-token prompts
 are admitted and warmed up, then ``--steps`` engine steps (one fused
 decode each) run with the profiler off and ``--steps`` more under
 ``torch.profiler``. It prints:
@@ -14,8 +18,9 @@ decode each) run with the profiler off and ``--steps`` more under
 - with the profiler on, wall ms per step;
 - device ms and kernel launches per step in all, the device's busy share
   of the wall time, and the shares of the hand kernels (K1, K3, and K4
-  on the paged engine, counted as its split kernel and its combine; K2
-  runs only in training, K6 only in prefill waves and unfused decode);
+  or K5 on the paged engine, each counted as its split kernel and its
+  combine; K2 runs only in training, K6 only in prefill waves and unfused
+  decode);
 - the top operators by the device time of the kernels they launch
   themselves, and the top kernels by name;
 - the elapsed ms (CUDA events) of prescaling and quantizing every weight
@@ -24,7 +29,8 @@ decode each) run with the profiler off and ``--steps`` more under
   waits for the host to launch the next operator.
 
 Run from the repository root on a machine with an NVIDIA GPU:
-``PYTHONPATH=src python3 -m repro_torch.launch.profile_decode``.
+``PYTHONPATH=src python3 -m repro_torch.launch.profile_decode [--paged]
+[--arch deepseek-v3-671b --n-layers 3]``.
 """
 from __future__ import annotations
 
@@ -45,21 +51,24 @@ from repro_torch.serve.engine import Engine
 from repro_torch.serve.request import Request
 
 HAND_KERNELS = {"K1": "tf_matmul_kernel", "K2": "tf_matmul_t_kernel",
-                "K3": "sample_kernel", "K4": "gqa_",
+                "K3": "sample_kernel", "K4": "gqa_", "K5": "mla_",
                 "K6": "gather_pages_kernel"}
 
 
 def step_weights(params) -> list:
-    """Every 2-D weight one decode step contracts, as ``dense`` reshapes it
-    (``wo`` over its two leading dims), then the tied head."""
+    """Every weight one decode step contracts through ``dense``, as it
+    reshapes it (``wo`` over its two leading dims), then the head (the
+    untied ``lm_head`` or the tied table's transpose). MLA's ``wkv_b`` is
+    not among them: the absorbed decode reads it through f32 einsums."""
     ws = []
     for lp in params["layers"]:
         for name, w in {**lp["mixer"], **lp["ffn"]}.items():
-            if w.ndim < 2:
+            if w.ndim < 2 or name == "wkv_b":
                 continue
             k = math.prod(w.shape[:-1]) if name == "wo" else w.shape[0]
             ws.append(w.reshape(k, -1))
-    ws.append(params["embed"].T)
+    ws.append(params["lm_head"] if "lm_head" in params
+              else params["embed"].T)
     return ws
 
 
@@ -152,12 +161,16 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--paged", action="store_true",
-                    help="profile the paged engine's decode step (K4)")
+                    help="profile the paged engine's decode step (K4/K5)")
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="override the configuration's depth")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
         return 1
-    cfg = get_config("qwen3-0.6b", tf=tf.TFConfig(mode="pallas"))
+    over = {} if args.n_layers is None else {"n_layers": args.n_layers}
+    cfg = get_config(args.arch, tf=tf.TFConfig(mode="pallas"), **over)
     params = model_lib.init(cfg, args.seed)
     print(f"device: {torch.cuda.get_device_name(0)}; {cfg.name} "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, mode pallas, "

@@ -1,2 +1,2 @@
-"""Dense-family transformer model: parameters, layers, cache and serving
-steps."""
+"""Transformer models of dense blocks (GQA and MLA): parameters, layers,
+caches and serving steps."""

@@ -222,17 +222,25 @@ def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, mask: MaskSpec, *,
     return out[:, :sq_in]
 
 
+def slab_write(buf: Tensor, new: Tensor, positions: Tensor) -> Tensor:
+    """Write ``new (B, Sq, ...)`` into ``buf (B, S_max, ...)`` at per-row
+    start ``positions`` (B,), in place. Like the reference's
+    dynamic_update_slice, a start past ``S_max - Sq`` is clamped so the
+    slab always fits."""
+    b, sq = new.shape[:2]
+    start = torch.clamp(positions.to(torch.int64), 0, buf.shape[1] - sq)
+    rows = torch.arange(b, device=new.device)[:, None]
+    cols = start[:, None] + torch.arange(sq, device=new.device)[None, :]
+    buf[rows, cols] = new.to(buf.dtype)
+    return buf
+
+
 def cache_update(cache: KVCache, k_new: Tensor, v_new: Tensor,
                  positions: Tensor) -> KVCache:
-    """Write (B, Sq, Hkv, D) at per-row start ``positions`` (B,), in place.
-    Like the reference's dynamic_update_slice, a start past
-    ``S_max - Sq`` is clamped so the slab always fits."""
-    b, sq = k_new.shape[:2]
-    start = torch.clamp(positions.to(torch.int64), 0, cache.k.shape[1] - sq)
-    rows = torch.arange(b, device=k_new.device)[:, None]
-    cols = start[:, None] + torch.arange(sq, device=k_new.device)[None, :]
-    cache.k[rows, cols] = k_new.to(cache.k.dtype)
-    cache.v[rows, cols] = v_new.to(cache.v.dtype)
+    """Write (B, Sq, Hkv, D) K/V slabs at per-row start ``positions``
+    (B,), in place (:func:`slab_write`)."""
+    slab_write(cache.k, k_new, positions)
+    slab_write(cache.v, v_new, positions)
     return cache
 
 

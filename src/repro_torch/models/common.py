@@ -1,5 +1,5 @@
 """Shared model machinery (port of ``repro.models.common``, the parts the
-dense family runs): parameter specs and their initialization, the
+dense blocks run, GQA and MLA): parameter specs and their initialization, the
 quantization-dispatched dense layer with its per-step weight cache, norms,
 rotary embeddings and the MLP.
 

@@ -1,0 +1,179 @@
+"""Multi-head Latent Attention (port of ``repro.models.mla``, the
+deepseek-v3 family).
+
+Without a cache (the full-sequence forward) the latent projections are
+expanded to per-head K/V and run through the shared blockwise attention.
+With a cache (serving prefill and decode) the *absorbed* form runs: the
+up-projection ``W_kv_b`` is folded into the query and output projections,
+so a cache position holds only the normalized latent ``c_kv`` (C =
+kv_lora_rank) and the shared rope key ``k_rope`` (R) and attention runs
+in the latent space.
+
+- Dense slot cache (:class:`MLACache`): the new rows are written at
+  ``positions[:, 0]`` and every query attends over the cache with the
+  causal mask and the row lengths (prefill runs here at S > 1).
+- Paged pool (:class:`PagedMLACache`, DESIGN.md §8): the new rows go to
+  the row's pages (``paged_write``); single-token decode runs the fused
+  split-K kernel K5 (``kernels/paged_attn.paged_decode_mla``) over the
+  table's KV-extent prefix, anything else reads the rows' dense view
+  through the page gather K6 and attends as on the dense cache.
+
+The absorption ``q_lat = q_nope · W_k_b`` and the output up-projection
+``o_lat · W_v_b`` stay ``torch.einsum`` in float32, as the reference leaves
+them to XLA. Every projection goes through ``dense``/``dense_in``
+(TimeFloats arithmetic when enabled). Caches are updated in place. The
+speculative chain-verify branch comes with the speculative-decoding slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attn import paged_decode_mla
+from repro_torch.models.attention import (NEG, MaskSpec, _capped_pt,
+                                          blockwise_attention, fused_paged_ok,
+                                          mask_allowed, paged_view,
+                                          paged_write, slab_write)
+from repro_torch.models.common import ParamSpec, dense, dense_in, rms_norm, rope
+
+Tensor = torch.Tensor
+
+
+class MLACache(NamedTuple):
+    """Per-layer slot cache: c_kv (B, S_max, C), k_rope (B, S_max, R)."""
+
+    c_kv: Tensor
+    k_rope: Tensor
+
+
+class PagedMLACache(NamedTuple):
+    """Per-layer paged cache: latent and rope page pools ``(P, page, C)``
+    and ``(P, page, R)`` shared by every row, and the per-row page table
+    ``pt (B, T)`` (page 0 is the trash page), as attention.PagedKVCache."""
+
+    c_kv: Tensor
+    k_rope: Tensor
+    pt: Tensor
+
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": ParamSpec((d, m.q_lora_rank), ("embed", "q_lora")),
+        "q_a_norm": ParamSpec((m.q_lora_rank,), ("q_lora",), init="ones"),
+        "wq_b": ParamSpec((m.q_lora_rank, h, qk),
+                          ("q_lora", "heads", "head_dim")),
+        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           ("embed", "kv_lora")),
+        "kv_a_norm": ParamSpec((m.kv_lora_rank,), ("kv_lora",),
+                               init="ones"),
+        "wkv_b": ParamSpec((m.kv_lora_rank, h,
+                            m.qk_nope_head_dim + m.v_head_dim),
+                           ("kv_lora", "heads", "head_dim")),
+        "wo": ParamSpec((h, m.v_head_dim, d), ("heads", "head_dim", "embed"),
+                        scale=1.0 / math.sqrt(h * m.v_head_dim / d)),
+    }
+
+
+def _project_q(params, x: Tensor, cfg: ModelConfig, positions: Tensor):
+    m = cfg.mla
+    q_lat = rms_norm(dense(x, params["wq_a"], cfg), params["q_a_norm"])
+    q = dense(q_lat, params["wq_b"], cfg)  # (B, S, H, nope+rope)
+    q_nope = q[..., : m.qk_nope_head_dim]
+    q_rope = rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _project_kv_latent(params, x: Tensor, cfg: ModelConfig,
+                       positions: Tensor):
+    m = cfg.mla
+    kv_a = dense(x, params["wkv_a"], cfg)  # (B, S, kv_lora+rope)
+    c_kv = rms_norm(kv_a[..., : m.kv_lora_rank], params["kv_a_norm"])
+    k_rope = kv_a[..., m.kv_lora_rank:][:, :, None, :]  # 1 shared head
+    k_rope = rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _up_project(o_lat: Tensor, wv_b: Tensor, params, cfg: ModelConfig
+                ) -> Tensor:
+    """Latent attention output (B, S, H, C) -> the layer's output."""
+    out = torch.einsum("bshc,chv->bshv", o_lat, wv_b.to(torch.float32))
+    return dense_in(out.to(cfg.activation_dtype), params["wo"], cfg)
+
+
+def mla_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig, *,
+              mask: MaskSpec, positions: Tensor,
+              cache: Optional[MLACache | PagedMLACache] = None,
+              lengths: Optional[Tensor] = None,
+              kv_cap: Optional[int] = None, fused: bool = True,
+              spec_verify: bool = False
+              ) -> tuple[Tensor, Optional[MLACache | PagedMLACache]]:
+    """MLA mixer. With no cache, the expanded blockwise path; with one,
+    the absorbed path: write the new latent/rope rows at
+    ``positions[:, 0]`` and attend over the cache (``lengths`` (B,) are the
+    post-update lengths). On a paged cache, single-token decode with
+    ``fused`` runs K5 over the table's ``kv_cap`` prefix."""
+    if spec_verify:
+        raise NotImplementedError("MLA chain verify comes with the "
+                                  "speculative-decoding slice")
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _project_q(params, x, cfg, positions)
+    c_kv, k_rope = _project_kv_latent(params, x, cfg, positions)
+
+    if cache is None:
+        # Expanded path: per-head K/V, shared blockwise attention.
+        kv = dense(c_kv, params["wkv_b"], cfg)  # (B, S, H, nope+v)
+        k_nope = kv[..., : m.qk_nope_head_dim]
+        v = kv[..., m.qk_nope_head_dim:]
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            b, s, h, m.qk_rope_head_dim)], dim=-1)
+        out = blockwise_attention(q, k, v, mask, q_block=cfg.q_block,
+                                  kv_block=cfg.kv_block)
+        return dense_in(out.to(cfg.activation_dtype), params["wo"],
+                        cfg), None
+
+    # Absorbed path.
+    write_pos = positions[:, 0]
+    wkv_b = params["wkv_b"]                    # (kv_lora, H, nope+v)
+    wk_b = wkv_b[..., : m.qk_nope_head_dim]    # (kv_lora, H, nope)
+    wv_b = wkv_b[..., m.qk_nope_head_dim:]     # (kv_lora, H, v)
+    q_lat = torch.einsum("bshn,chn->bshc", q_nope.to(torch.float32),
+                         wk_b.to(torch.float32))
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+    if isinstance(cache, PagedMLACache):
+        paged_write(cache.c_kv, c_kv, write_pos, cache.pt)
+        paged_write(cache.k_rope, k_rope, write_pos, cache.pt)
+        if fused and fused_paged_ok(mask, s):
+            pt = _capped_pt(cache.pt, cache.c_kv.shape[1], kv_cap)
+            o_lat = paged_decode_mla(q_lat[:, 0], q_rope[:, 0], cache.c_kv,
+                                     cache.k_rope, pt, lengths,
+                                     scale=scale)[:, None]
+            return _up_project(o_lat, wv_b, params, cfg), cache
+        c_kv_all = paged_view(cache.c_kv, cache.pt)      # (B, T*page, C)
+        k_rope_all = paged_view(cache.k_rope, cache.pt)
+    else:
+        slab_write(cache.c_kv, c_kv, write_pos)
+        slab_write(cache.k_rope, k_rope, write_pos)
+        c_kv_all, k_rope_all = cache.c_kv, cache.k_rope
+    ckf = c_kv_all.to(torch.float32)
+    s_lat = torch.einsum("bshc,bjc->bhsj", q_lat, ckf)
+    s_rope = torch.einsum("bshr,bjr->bhsj", q_rope.to(torch.float32),
+                          k_rope_all.to(torch.float32))
+    scores = (s_lat + s_rope) * scale  # (B, H, S, S_max)
+    kv_pos = torch.arange(c_kv_all.shape[1], device=x.device)
+    ok = mask_allowed(positions[:, :, None], kv_pos[None, None, :], mask)
+    ok = (ok & (kv_pos[None, None, :] < lengths[:, None, None]))[:, None]
+    scores = torch.where(ok, scores, NEG)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = torch.where(ok, e / e.sum(dim=-1, keepdim=True), 0.0)
+    o_lat = torch.einsum("bhsj,bjc->bshc", p, ckf)
+    return _up_project(o_lat, wv_b, params, cfg), cache

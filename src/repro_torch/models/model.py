@@ -1,13 +1,18 @@
-"""LMModel, dense family (port of ``repro.models.model``): parameters, the
-layer loop, the full-sequence training forward and loss, the slot cache,
-the paged cache (DESIGN.md §8) and the serving steps ``prefill`` /
+"""LMModel (port of ``repro.models.model``) for configurations whose
+layers are all dense blocks: the dense family (GQA attention) and the
+dense layers of the ``moe`` family (MLA attention, FFN width
+``moe.dense_d_ff``; deepseek-v3 cut to its first three layers). Parameters,
+the layer loop, the full-sequence training forward and loss, the slot
+cache, the paged cache (DESIGN.md §8) and the serving steps ``prefill`` /
 ``decode_step`` / ``prefill_into_slots`` / ``prefill_into_pages``.
 
 The reference stacks layers and scans them; here the parameters hold a list
 of per-layer dicts (``params["layers"]``) and a Python loop walks it. Its
 ``remat="full"`` (``jax.checkpoint`` of the scan body) becomes
-``torch.utils.checkpoint`` around each block. Other families (MoE, MLA,
-SSM, hybrid, audio, VLM) come with later slices.
+``torch.utils.checkpoint`` around each block. A layer's cache is a
+``KVCache``/``PagedKVCache`` (GQA) or an ``MLACache``/``PagedMLACache``;
+every function below that touches caches works on their fields generically.
+MoE layers, SSM, hybrid, audio and VLM come with later slices.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.attention import KVCache, MaskSpec, PagedKVCache
 from repro_torch.models.common import (ParamSpec, dense, init_params,
                                        mlp_apply, mlp_specs, norm_apply,
@@ -28,12 +34,23 @@ from repro_torch.models.common import (ParamSpec, dense, init_params,
 
 Tensor = torch.Tensor
 Tree = Any
+# A layer's cache: GQA K/V or MLA latents, on slot rows or on the page pool.
+Cache = KVCache | PagedKVCache | mla_mod.MLACache | mla_mod.PagedMLACache
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.mla is not None:
+def _require_ported(cfg: ModelConfig) -> None:
+    """Every layer must be a dense block of a ported family."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if "moe" in cfg.layer_kinds():
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"{cfg.name}: MoE layers come with the MoE slice (models/moe.py);"
+            f" only its first {cfg.moe.first_k_dense} dense layers run "
+            f"(n_layers <= {cfg.moe.first_k_dense})")
+
+
+def _uses_mla(cfg: ModelConfig) -> bool:
+    return cfg.mla is not None
 
 
 def default_mask(cfg: ModelConfig) -> MaskSpec:
@@ -44,17 +61,25 @@ def default_mask(cfg: ModelConfig) -> MaskSpec:
 
 
 def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    return {"norm1": norm_specs(cfg), "mixer": attn_mod.attention_specs(cfg),
-            "norm2": norm_specs(cfg), "ffn": mlp_specs(cfg)}
+    """A dense block: the MLA or GQA mixer and an MLP, of width
+    ``moe.dense_d_ff`` in a ``moe``-family config's dense layers."""
+    d_ff = cfg.d_ff
+    if cfg.moe and cfg.moe.dense_d_ff:
+        d_ff = cfg.moe.dense_d_ff
+    mixer = (mla_mod.mla_specs(cfg) if _uses_mla(cfg)
+             else attn_mod.attention_specs(cfg))
+    return {"norm1": norm_specs(cfg), "mixer": mixer,
+            "norm2": norm_specs(cfg), "ffn": mlp_specs(cfg, d_ff)}
 
 
 def block_apply(params: Dict[str, Any], x: Tensor, cfg: ModelConfig, *,
-                positions: Tensor, cache: Optional[KVCache | PagedKVCache],
+                positions: Tensor, cache: Optional[Cache],
                 lengths: Optional[Tensor], kv_cap: Optional[int] = None,
                 fused_paged: bool = True
-                ) -> tuple[Tensor, Optional[KVCache | PagedKVCache]]:
+                ) -> tuple[Tensor, Optional[Cache]]:
     h = norm_apply(params["norm1"], x, cfg)
-    y, cache = attn_mod.attention_apply(
+    mixer = mla_mod.mla_apply if _uses_mla(cfg) else attn_mod.attention_apply
+    y, cache = mixer(
         params["mixer"], h, cfg, mask=default_mask(cfg), positions=positions,
         cache=cache, lengths=lengths, kv_cap=kv_cap, fused=fused_paged)
     x = x + y
@@ -63,7 +88,7 @@ def block_apply(params: Dict[str, Any], x: Tensor, cfg: ModelConfig, *,
 
 
 def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _require_dense(cfg)
+    _require_ported(cfg)
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                            init="embed", scale=0.02),
@@ -101,10 +126,10 @@ def _head(params: Tree, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def _run_layers(params: Tree, x: Tensor, cfg: ModelConfig, *,
-                positions: Tensor, caches: List[KVCache | PagedKVCache],
+                positions: Tensor, caches: List[Cache],
                 lengths: Tensor, kv_cap: Optional[int] = None,
                 fused_paged: bool = True
-                ) -> tuple[Tensor, List[KVCache | PagedKVCache]]:
+                ) -> tuple[Tensor, List[Cache]]:
     new = []
     for lp, lc in zip(params["layers"], caches):
         x, lc = block_apply(lp, x, cfg, positions=positions, cache=lc,
@@ -143,7 +168,7 @@ def forward(params: Tree, batch: Dict[str, Tensor], cfg: ModelConfig, *,
             train: bool = True) -> tuple[Tensor, Dict[str, Tensor]]:
     """Full-sequence forward -> (logits (B, S, V) f32, aux). ``train``
     applies ``cfg.remat`` to the layer loop."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = embed_tokens(params, batch["tokens"], cfg)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -183,17 +208,34 @@ def loss_fn(params: Tree, batch: Dict[str, Tensor], cfg: ModelConfig
 
 
 class ModelCache(NamedTuple):
-    layers: tuple                # per-layer KVCache or PagedKVCache
+    layers: tuple                # per-layer Cache
     lengths: Tensor              # (B,) int32 valid lengths
+
+
+def _layer_cache(cfg: ModelConfig, rows: int, row_len: int, device,
+                 pt: Optional[Tensor] = None) -> Cache:
+    """One layer's zeroed cache: ``rows`` slot rows of ``row_len``
+    positions, or with a page table ``pt``, ``rows`` pages of ``row_len``
+    positions."""
+    dt = cfg.activation_dtype
+
+    def z(*feat):
+        return torch.zeros((rows, row_len) + feat, dtype=dt, device=device)
+
+    if _uses_mla(cfg):
+        m = cfg.mla
+        lat, rot = z(m.kv_lora_rank), z(m.qk_rope_head_dim)
+        return (mla_mod.MLACache(lat, rot) if pt is None
+                else mla_mod.PagedMLACache(lat, rot, pt))
+    feat = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    return (KVCache(z(*feat), z(*feat)) if pt is None
+            else PagedKVCache(z(*feat), z(*feat), pt))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> ModelCache:
-    _require_dense(cfg)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    dt = cfg.activation_dtype
-    layers = tuple(KVCache(k=torch.zeros(shape, dtype=dt, device=device),
-                           v=torch.zeros(shape, dtype=dt, device=device))
+    _require_ported(cfg)
+    layers = tuple(_layer_cache(cfg, batch, max_len, device)
                    for _ in range(cfg.n_layers))
     return ModelCache(layers=layers,
                       lengths=torch.zeros((batch,), dtype=torch.int32,
@@ -201,33 +243,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
-    """The paged pool covers the attention families whose K/V at a
-    position is a pure function of the token prefix (no meta-token or
-    patch prefix); of those the port has the dense family."""
-    return (cfg.family == "dense" and cfg.mla is None
+    """The paged pool covers the attention families whose K/V (or MLA
+    latents) at a position are a pure function of the token prefix (no
+    meta-token or patch prefix); of those the port has the dense family
+    and the dense layers of the MLA family."""
+    return (cfg.family in ("dense", "moe")
+            and all(k == "dense" for k in cfg.layer_kinds())
             and not cfg.num_prefix_tokens)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      page_size: int, num_pages: int, device="cuda"
                      ) -> ModelCache:
-    """Paged ModelCache: per-layer page pools ``(P, page, Hkv, hd)`` shared
-    by every row, and ONE ``(B, T)`` int32 page table (T*page == max_len)
-    that every layer's PagedKVCache holds: the reference replicates the
-    table over L so it rides its layer scan; the port's layer loop needs
-    no copy. Entries start at the trash page 0."""
+    """Paged ModelCache: per-layer page pools ``(P, page, ...)`` (GQA
+    K/V, or MLA latents and rope keys) shared by every row, and ONE
+    ``(B, T)`` int32 page table (T*page == max_len) that every layer's
+    cache holds: the reference replicates the table over L so it rides its
+    layer scan; the port's layer loop needs no copy. Entries start at the
+    trash page 0."""
     if not paged_supported(cfg):
-        raise NotImplementedError(f"paged cache: {cfg.family!r} with "
-                                  "prefix/MLA is not supported")
+        raise NotImplementedError(f"paged cache: {cfg.name} is not a "
+                                  "supported family")
     if max_len % page_size:
         raise ValueError("max_len must be a page multiple")
-    shape = (num_pages, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
-    dt = cfg.activation_dtype
     pt = torch.zeros((batch, max_len // page_size), dtype=torch.int32,
                      device=device)
-    layers = tuple(PagedKVCache(k=torch.zeros(shape, dtype=dt, device=device),
-                                v=torch.zeros(shape, dtype=dt, device=device),
-                                pt=pt)
+    layers = tuple(_layer_cache(cfg, num_pages, page_size, device, pt)
                    for _ in range(cfg.n_layers))
     return ModelCache(layers=layers,
                       lengths=torch.zeros((batch,), dtype=torch.int32,
@@ -255,11 +296,11 @@ def decode_step(params: Tree, cache: ModelCache, tokens: Tensor,
     """One decode step. tokens (B, 1). Positions are cache.lengths (append
     at the end); lengths advance by 1. Returns (logits (B, 1, V), cache).
 
-    On a paged cache attention runs the fused split-K kernel K4
-    (``fused_paged=False`` keeps the gather + softmax composition), over
-    the ``kv_cap`` prefix of each table (tokens, a page multiple): the
-    caller guarantees every row's post-step length fits it. Dense caches
-    ignore both."""
+    On a paged cache attention runs the fused split-K kernel, K4 (GQA) or
+    K5 (MLA) (``fused_paged=False`` keeps the gather + softmax
+    composition), over the ``kv_cap`` prefix of each table (tokens, a page
+    multiple): the caller guarantees every row's post-step length fits it.
+    Dense caches ignore both."""
     x = embed_tokens(params, tokens, cfg)
     positions = cache.lengths[:, None]
     lengths = cache.lengths + 1
@@ -316,8 +357,8 @@ def scatter_cache_rows(full: ModelCache, rows: ModelCache,
     src = torch.as_tensor(keep, device=dev)
     dst = torch.as_tensor(ids[keep].astype(np.int64), device=dev)
     for f, r in zip(full.layers, rows.layers):
-        f.k[dst] = r.k[src]
-        f.v[dst] = r.v[src]
+        for buf, new in zip(f, r):
+            buf[dst] = new[src]
     full.lengths[dst] = rows.lengths[src].to(full.lengths.dtype)
     return full
 

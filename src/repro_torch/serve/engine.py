@@ -33,9 +33,12 @@ pool with radix prefix reuse (DESIGN.md §8).
 Behaviour kept from the reference: ``max_new_tokens=1`` finishes at
 prefill, EOS is checked on the prefill token, a slot is done when its cache
 length reaches ``max_len - 1``, and ``submit_t`` is stamped at ``submit``.
-Temperature noise comes from a ``torch.Generator`` seeded with ``seed``
-(the reference's threefry key chain is not ported), so only greedy streams
-match the reference token for token.
+Temperature noise is the reference's: row i of a sampling call draws
+``gumbel`` of ``fold_in(fold_in(fold_in(PRNGKey(seed), i), tag), counter)``
+(``kernels/sampling.sample_tokens``), with the per-slot ``tag`` (the
+request's uid) and ``counter`` (0 for the prefill token, then one more per
+decode step) that the engine state carries, so tempered streams match the
+reference's token for token as greedy ones do.
 
 Later slices: chunked prefill, speculative decoding, the cost scheduler,
 tracing, health and energy telemetry, ``compile_cache_stats``.
@@ -49,6 +52,7 @@ from typing import Deque, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import random as rnd
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.sampling import sample_tokens
 from repro_torch.models import model as model_lib
@@ -68,6 +72,8 @@ class EngineState(NamedTuple):
     active: Tensor        # (slots,) bool
     temp: Tensor          # (slots,) float32
     remaining: Tensor     # (slots,) int32 — new tokens still allowed
+    counter: Tensor       # (slots,) int32 — sampling step (0 = prefill)
+    tag: Tensor           # (slots,) int32 — the occupying request's uid
 
 
 def bucket_for(plen: int, cap: int, min_bucket: int = 8) -> int:
@@ -79,13 +85,14 @@ def bucket_for(plen: int, cap: int, min_bucket: int = 8) -> int:
 
 def _admit_update(state: EngineState, cache: model_lib.ModelCache,
                   logits: Tensor, ids: np.ndarray, temps: Tensor,
-                  budgets: Tensor, *, eos: Optional[int], slots: int,
-                  generator: Optional[torch.Generator]):
+                  budgets: Tensor, tags: Tensor, *, key: Tensor,
+                  eos: Optional[int], slots: int):
     """Shared tail of every prefill wave: sample the first token, apply the
     admission updates at ``ids`` (dummy rows, id >= slots, drop) and report
     per-row done masks. Admission guarantees prompt < max_len, so the first
     decode write always fits: cache-full can only trigger in decode."""
-    tok = sample_tokens(logits[:, 0], temps, generator)
+    tok = sample_tokens(logits[:, 0], temps, key, tags,
+                        torch.zeros_like(tags))
     rem = budgets - 1
     done = rem <= 0
     if eos is not None:
@@ -98,6 +105,8 @@ def _admit_update(state: EngineState, cache: model_lib.ModelCache,
     state.active[dst] = ~done[src]
     state.temp[dst] = temps[src]
     state.remaining[dst] = rem[src]
+    state.counter[dst] = 1
+    state.tag[dst] = tags[src]
     return state._replace(cache=cache), (tok, done)
 
 
@@ -118,7 +127,7 @@ class Engine:
         self.eos_id = None if eos_id is None else int(eos_id)
         self.min_bucket = min_bucket
         self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.key = rnd.PRNGKey(seed, self.device)
         self.paged = paged
         # Fused split-K paged decode: on for paged engines unless asked
         # off; dense engines have no paged kernel to fuse.
@@ -155,7 +164,7 @@ class Engine:
             active=torch.zeros((slots,), dtype=torch.bool, device=self.device),
             temp=torch.zeros((slots,), dtype=torch.float32,
                              device=self.device),
-            remaining=z_i)
+            remaining=z_i, counter=z_i.clone(), tag=z_i.clone())
         self.active: Dict[int, Request] = {}     # slot -> request (mirror)
         self.queue: Deque[Request] = deque()
         self.steps = 0
@@ -176,6 +185,7 @@ class Engine:
         ids = np.full((slots,), slots, np.int32)      # dummy rows: drop
         temps = np.zeros((slots,), np.float32)
         budgets = np.ones((slots,), np.int32)
+        tags = np.zeros((slots,), np.int32)
         for r, (slot, req, skip, _pages) in enumerate(group):
             p = np.asarray(req.prompt)
             tokens[r, : len(p) - skip] = p[skip:]
@@ -184,6 +194,7 @@ class Engine:
             ids[r] = slot
             temps[r] = req.temperature
             budgets[r] = req.max_new_tokens
+            tags[r] = req.uid & 0x7FFFFFFF
         dev = self.device
         tok_t = torch.as_tensor(tokens, device=dev)
         plen_t = torch.as_tensor(plens, device=dev)
@@ -197,8 +208,9 @@ class Engine:
                 max_len=self.max_len)
         self.state, out = _admit_update(
             self.state, cache, logits, ids, torch.as_tensor(temps, device=dev),
-            torch.as_tensor(budgets, device=dev), eos=self.eos_id,
-            slots=slots, generator=self.generator)
+            torch.as_tensor(budgets, device=dev),
+            torch.as_tensor(tags, device=dev), key=self.key, eos=self.eos_id,
+            slots=slots)
         return out
 
     def _decode_and_sample(self):
@@ -206,7 +218,8 @@ class Engine:
         logits, cache = model_lib.decode_step(
             self.params, st.cache, st.last_token, self.cfg,
             kv_cap=self._decode_cap(), fused_paged=self.fused_decode)
-        tok = sample_tokens(logits[:, 0], st.temp, self.generator)
+        tok = sample_tokens(logits[:, 0], st.temp, self.key, st.tag,
+                            st.counter)
         rem = st.remaining - 1
         done = (rem <= 0) | (cache.lengths >= self.max_len - 1)
         if self.eos_id is not None:
@@ -218,7 +231,9 @@ class Engine:
                                    st.last_token),
             active=st.active & ~done,
             temp=st.temp,
-            remaining=torch.where(st.active, rem, st.remaining))
+            remaining=torch.where(st.active, rem, st.remaining),
+            counter=st.counter + st.active.to(torch.int32),
+            tag=st.tag)
         return tok, done
 
     def _decode_cap(self) -> Optional[int]:

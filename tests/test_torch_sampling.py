@@ -56,8 +56,9 @@ def test_argmax_low_lowest_index_ties():
 def test_sample_tokens_greedy_rows_ignore_noise():
     lg, _, _ = _case(3)
     temps = torch.zeros(lg.shape[0])
-    gen = torch.Generator().manual_seed(0)
-    got = tsamp.sample_tokens(torch.from_numpy(lg), temps, gen)
+    zero = torch.zeros(lg.shape[0], dtype=torch.int32)
+    got = tsamp.sample_tokens(torch.from_numpy(lg), temps,
+                              torch.tensor([0, 7]), zero, zero)
     want = np.asarray(jsamp.argmax_low(jnp.asarray(lg), axis=-1))
     assert_bitwise(got.numpy(), want, "greedy rows")
 
