@@ -16,15 +16,25 @@ on any fault:
              library (dequantize + one f32 matmul) times and the bound of
              the unpadded function's bytes and int8 operations.
 4. K2      — the transposed read dx = g @ W^T at the training step's
-             M = 1024 and the (K, N) of every projection and the tied head:
-             within N * 2^-24 * (|gd| @ |wd|^T) of its plain version
-             elementwise (both sum the same exact products in f32, in
-             different orders); kernel, plain and library (dequantize +
-             one f32 matmul) times and the bound of the unpadded bytes and
-             of 2*M*N*K flops at the bf16 tensor-core rate (the
-             dequantized products are exact in bf16).
+             M = 1024 and the (K, N) of every projection and the tied head,
+             plus a ragged (M, K, N) = (1000, 1000, 3000): within
+             N * 2^-24 * (|gd| @ |wd|^T) of its plain version elementwise
+             (both sum the same exact products in f32, in different
+             orders; the worst diff/tol is printed) at the wrapper's split
+             count and at 1-4 splits, bitwise equal on two calls; the sweep
+             over splits; kernel, plain and library (dequantize + one f32
+             matmul) times and the bound of the unpadded bytes and of
+             2*M*N*K flops at the bf16 tensor-core rate (the dequantized
+             products are exact in bf16); information only, the time of a
+             bf16 dequantize + bf16 matmul.
 5. K3      — fused sampling on (4, 151936) logits with injected exact ties,
              greedy and temperature rows sharing one noise tensor: bitwise;
+             then at (4, 151936), (4, 129280), (1, 151936), (3, 151937) and
+             (4, 301), at 4, 8 and 16 blocks per row, bitwise on mixed
+             greedy and temperature rows, on exact ties straddling every
+             slice boundary of each cluster size, and on a tie between
+             index 0 and V-1, an all -inf row and a NaN row; the sweep over
+             blocks per row at both vocabularies beside ``torch.argmax``;
              its bound counts noise only for the temperature rows.
 6. K6      — the page gather at the paged prefill shape, pool (129, 16, 8,
              128) bf16 and a (4, 32) table with trash entries, plus one
@@ -330,6 +340,10 @@ def k2_tolerance(km, *operands):
     return gd.shape[1] * 2.0 ** -24 * (gd.abs() @ wd.abs().T)
 
 
+K2_SPLITS = (1, 2, 3, 4)       # split counts swept beside the wrapper's rule
+K2_RAGGED = (1000, 1000, 3000)  # (M, K, N) held besides the training shapes
+
+
 def phase_k2(torch, cfg, seed: int) -> dict:
     from repro_torch.core import timefloats as tf
     from repro_torch.kernels import ops
@@ -338,52 +352,81 @@ def phase_k2(torch, cfg, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     cfg_tf = tf.TFConfig(mode="pallas")
     m = TRAIN_B * TRAIN_S
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst_err, worst_share = 0.0, 0.0
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-           "ops": 0.0}
-    for (k, n), count in k1_shapes(cfg).items():
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bf16_ms": 0.0,
+           "bytes": 0.0, "ops": 0.0}
+    cases = [(m, k, n, count) for (k, n), count in k1_shapes(cfg).items()]
+    for m_, k, n, count in cases + [(*K2_RAGGED, 0)]:
         # The stored planes of a (K, N) weight, as the forward read them,
         # and a streamed gradient g (M, N) quantized along N.
         w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
         qw = tf.quantize_weight(tf._pow2_prescale(w, cfg_tf)[0], cfg_tf)
-        g = torch.randn(m, n, generator=gen, device="cuda") * 1e-3
+        g = torch.randn(m_, n, generator=gen, device="cuda") * 1e-3
         qg = tf.quantize_input(tf._pow2_prescale(g, cfg_tf)[0], cfg_tf)
         a = ops.padded_transposed_operands(qg, qw)
-        got = km.timefloats_matmul_transposed_quantized(*a, cfg=cfg_tf)
+        d, c = a[0].shape[0], a[2].shape[0]
+        rule = km.k2_splits(a[0].shape[1], c, d, sms)
         want = km.timefloats_matmul_transposed_plain(*a)
         tol = k2_tolerance(km, *a)
-        torch.cuda.synchronize()
-        diff = (got - want).abs()
-        share = (diff / tol.clamp_min(1e-38)).max().item()
-        err = diff.max().item()
-        worst_err, worst_share = max(worst_err, err), max(worst_share, share)
-        check(bool((diff <= tol).all()) and bool(torch.isfinite(got).all()),
-              f"K2 M={m} K={k} N={n}: kernel outside N*2^-24*(|gd|@|wd|^T)"
-              f" of plain (max abs {err}, worst diff/tol {share})")
-        ms = time_ms(torch, lambda: km.timefloats_matmul_transposed_quantized(
-            *a, cfg=cfg_tf), reps=10)
+        sweep = []
+        for sp in sorted({rule, *(x for x in K2_SPLITS if x <= d)}):
+            got = km.timefloats_matmul_transposed_quantized(*a, cfg=cfg_tf,
+                                                            splits=sp)
+            again = km.timefloats_matmul_transposed_quantized(
+                *a, cfg=cfg_tf, splits=sp)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            share = (diff / tol.clamp_min(1e-38)).max().item()
+            err = diff.max().item()
+            worst_err = max(worst_err, err)
+            worst_share = max(worst_share, share)
+            check(bool((diff <= tol).all()) and bool(torch.isfinite(got).all()),
+                  f"K2 M={m_} K={k} N={n} splits={sp}: kernel outside "
+                  f"N*2^-24*(|gd|@|wd|^T) of plain (max abs {err}, worst "
+                  f"diff/tol {share})")
+            check(torch.equal(got, again), f"K2 M={m_} K={k} N={n} "
+                  f"splits={sp}: two calls on the same inputs differ")
+            t = time_ms(torch, lambda: km.timefloats_matmul_transposed_quantized(
+                *a, cfg=cfg_tf, splits=sp), reps=10)
+            sweep.append((sp, t, share, err))
+        ms = next(t for sp, t, _, _ in sweep if sp == rule)
+        share = max(x for _, _, x, _ in sweep)
+        err = max(e for _, _, _, e in sweep)
         plain = time_ms(torch, lambda: km.timefloats_matmul_transposed_plain(
             *a), reps=5, warmup=1)
         lib = time_ms(torch, lambda: torch.matmul(
             tf.dequantize_input(qg, n), tf.dequantize_weight(qw, k).T),
             reps=5, warmup=1)
-        nbytes, nops = k2_traffic(m, n, k)
+        bf16 = time_ms(torch, lambda: torch.matmul(
+            tf.dequantize_input(qg, n, torch.bfloat16),
+            tf.dequantize_weight(qw, k, torch.bfloat16).T), reps=5, warmup=1)
+        nbytes, nops = k2_traffic(m_, n, k)
         b_ms, b_by = bound(nbytes, nops, BF16_FLOPS_PER_S)
-        print(f"K2 M={m} K={k:4d} N={n:6d} max_abs={err:.3e} "
-              f"worst_diff/tol={share:.3e} ms={ms:.4f} plain_ms={plain:.4f} "
+        print(f"K2 M={m_} K={k:4d} N={n:6d} D={d} splits={rule} (rule) "
+              f"bitwise_repeat=True max_abs={err:.3e} worst_diff/tol="
+              f"{share:.3e} ms={ms:.4f} plain_ms={plain:.4f} "
               f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
               f"share_of_bound={b_ms / ms:.4f} launches_per_step={count}",
               flush=True)
+        print(f"K2 M={m_} K={k:4d} N={n:6d} ms by splits " + " ".join(
+            f"{sp}:{t:.4f}" for sp, t, _, _ in sweep) + " worst_diff/tol by "
+            "splits " + " ".join(f"{sp}:{x:.3e}" for sp, _, x, _ in sweep)
+            + f"; information only: bf16 dequantize + bf16 matmul "
+            f"{bf16:.4f} ms", flush=True)
         tot["ms"] += count * ms
         tot["plain_ms"] += count * plain
         tot["library_ms"] += count * lib
+        tot["bf16_ms"] += count * bf16
         tot["bytes"] += count * nbytes
         tot["ops"] += count * nops
     b_ms, b_by = bound(tot["bytes"], tot["ops"], BF16_FLOPS_PER_S)
     print(f"K2 per training step ({train_launches(cfg)[1]} launches): "
           f"ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
-          f"library_ms={tot['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})",
-          flush=True)
+          f"library_ms={tot['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"share_of_bound={b_ms / tot['ms']:.4f} worst_diff/tol="
+          f"{worst_share:.3e}; information only: bf16 dequantize + bf16 "
+          f"matmul {tot['bf16_ms']:.4f} ms", flush=True)
     return {"name": "K2 timefloats_matmul_transposed (one training step)",
             "route": "cuda",
             "source": "src/repro_torch/csrc/timefloats_matmul_transposed.cu",
@@ -393,7 +436,71 @@ def phase_k2(torch, cfg, seed: int) -> dict:
             "library_ms": tot["library_ms"]}
 
 
-def phase_k3(torch, cfg, seed: int) -> dict:
+K3_BLOCKS = (4, 8, 16)         # blocks (one cluster) per row, swept
+
+
+def k3_hold(torch, ks, lg, noise, temps, what: str, want=None) -> None:
+    """K3 at every cluster size against its plain version, bitwise, and
+    against ``want`` where the case fixes the tokens."""
+    plain = ks.sample_plain(lg, noise, temps)
+    for p in K3_BLOCKS:
+        got = ks.sample(lg, noise, temps, blocks_per_row=p)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain), f"K3 {what} blocks_per_row={p}: "
+              f"kernel {got.tolist()} != plain {plain.tolist()}")
+    if want is not None:
+        check(plain.tolist() == want, f"K3 {what}: tokens {plain.tolist()} "
+              f"!= {want}")
+
+
+def k3_edges(torch, rnd, ks, seed: int, s: int, v: int) -> int:
+    """Hold K3 bitwise at (s, v) on the cases a row cut over a cluster can
+    get wrong; returns how many cases were held."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + s * v)
+    temps = torch.tensor([0.0, 0.8, 1.0, 0.0][:s], device="cuda")
+    lg = (torch.randn(s, v, generator=gen, device="cuda") * 4).round() / 4
+    noise = (rnd.gumbel(rnd.fold_in(rnd.PRNGKey(seed, "cuda"), torch.arange(
+        s, device="cuda")), (v,)) * 2).round() / 2
+    held = 0
+    # Greedy and temperature rows mixed, coarse values: ties are common.
+    k3_hold(torch, ks, lg, noise, temps, f"S={s} V={v} mixed")
+    held += 1
+    # An exact tie straddling each slice boundary of every cluster size.
+    top = 1.0e4
+    for p in K3_BLOCKS:
+        for b in range(1, p):
+            x, z, want = lg.clone(), noise.clone(), []
+            for r in range(s):
+                e = ks.row_slices(v, p, r)[b][0]
+                e = min(max(e, 1), v - 1)
+                x[r, e - 1] = x[r, e] = top
+                z[r, e - 1] = z[r, e] = 0.0
+                want.append(e - 1)
+            k3_hold(torch, ks, x, z, temps, f"S={s} V={v} tie at the "
+                    f"{b}-th of {p} slice boundaries", want)
+            held += 1
+    # A tie between index 0 and V-1, an all -inf row, a NaN row.
+    x = lg.clone()
+    x[0, 0] = x[0, v - 1] = top
+    want = [0]
+    if s > 1:
+        x[1] = float("-inf")
+        want.append(0)
+    if s > 2:
+        x[2, v // 2] = float("nan")
+        want.append(v)
+    want += [None] * (s - len(want))
+    z = noise.clone()
+    z[0, 0] = z[0, v - 1] = 0.0
+    k3_hold(torch, ks, x, z, temps, f"S={s} V={v} first/last tie, -inf and "
+            f"NaN rows")
+    got = ks.sample_plain(x, z, temps).tolist()
+    check(all(w is None or g == w for g, w in zip(got, want)),
+          f"K3 S={s} V={v} edges: tokens {got}, expected {want}")
+    return held + 1
+
+
+def phase_k3(torch, cfg, seed: int, mla_vocab: int) -> dict:
     from repro_torch import random as rnd
     from repro_torch.kernels import sampling as ks
 
@@ -415,9 +522,33 @@ def phase_k3(torch, cfg, seed: int) -> dict:
     check(torch.equal(got, want), f"K3: kernel {got.tolist()} != plain "
           f"{want.tolist()}")
     check(got.tolist() == [77, 4321, 11, v], f"K3 tie/NaN rule: {got.tolist()}")
+    held = {(s_, v_): k3_edges(torch, rnd, ks, seed, s_, v_) for s_, v_ in (
+        (4, v), (4, mla_vocab), (1, v), (3, v + 1), (4, 301))}
+    print("K3 bitwise at every cluster size " + str(K3_BLOCKS) + ": " +
+          ", ".join(f"(S={s_}, V={v_}) {n} cases" for (s_, v_), n
+                    in held.items()), flush=True)
+    # The sweep over cluster sizes, and the record at the wrapper's default,
+    # on this phase's (4, V) case (2 temperature rows) and at deepseek-v3's
+    # vocabulary.
+    lib_by_v = {}
+    for v_ in (v, mla_vocab):
+        x = (torch.randn(s, v_, generator=gen, device="cuda") * 4).round() / 4
+        z = rnd.gumbel(rnd.fold_in(rnd.PRNGKey(seed, "cuda"), torch.arange(
+            s, device="cuda")), (v_,))
+        if v_ == v:
+            x, z = lg, noise
+        times = {p: time_ms(torch, lambda: ks.sample(
+            x, z, temps, blocks_per_row=p), reps=50) for p in K3_BLOCKS}
+        lib_by_v[v_] = time_ms(torch, lambda: torch.argmax(x, dim=-1),
+                               reps=50)
+        best = min(times, key=times.get)
+        print(f"K3 S={s} V={v_} ms by blocks_per_row " + " ".join(
+            f"{p}:{t:.4f}" for p, t in times.items()) + f"; fastest {best}, "
+            f"default {ks.BLOCKS_PER_ROW}; library_ms(argmax)="
+            f"{lib_by_v[v_]:.4f}", flush=True)
     ms = time_ms(torch, lambda: ks.sample(lg, noise, temps), reps=50)
     plain = time_ms(torch, lambda: ks.sample_plain(lg, noise, temps), reps=20)
-    lib = time_ms(torch, lambda: torch.argmax(lg, dim=-1), reps=50)
+    lib = lib_by_v[v]
     # lg is read once; noise only for the temperature rows (greedy rows
     # never touch it, in the kernel or in the function); temps in, tokens
     # out.
@@ -425,8 +556,10 @@ def phase_k3(torch, cfg, seed: int) -> dict:
     b_ms, b_by = bound(lg.numel() * 4 + hot * v * 4 + s * 4 + s * 4, 0.0)
     greedy_ms, _ = bound(lg.numel() * 4 + s * 4 + s * 4, 0.0)
     print(f"K3 S={s} V={v} temperature_rows={hot} bitwise=True "
-          f"tokens={got.tolist()} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"tokens={got.tolist()} blocks_per_row={ks.BLOCKS_PER_ROW} "
+          f"ms={ms:.4f} plain_ms={plain:.4f} "
           f"library_ms(argmax)={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"share_of_bound={b_ms / ms:.4f} "
           f"bound_ms_all_greedy={greedy_ms:.4f} launches_per_decode_step=1",
           flush=True)
     return {"name": "K3 sampling", "route": "cuda",
@@ -1260,7 +1393,7 @@ def main(argv=None) -> int:
     try:
         k1_serve, k1_train = phase_k1(torch, cfg, args.seed)
         k2 = phase_k2(torch, cfg, args.seed)
-        k3 = phase_k3(torch, cfg, args.seed)
+        k3 = phase_k3(torch, cfg, args.seed, cfg_mla.vocab_size)
         k6 = phase_k6(torch, cfg, args.seed)
         k4 = phase_k4(torch, cfg, args.seed)
         k5 = phase_k5(torch, cfg_mla, args.seed)

@@ -39,11 +39,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # qx, sx, qw, sw, out, C, M, N, adc, fs, levels, step, stream
         "tf_matmul": [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P]},
     "timefloats_matmul_transposed": {
-        # qg, sg, qw, sw, out, D, M, C, stream
-        "tf_matmul_t": [_P] * 5 + [_I] * 3 + [_P]},
+        # qg, sg, qw, sw, out, D, M, C, splits, stream
+        "tf_matmul_t": [_P] * 5 + [_I] * 4 + [_P]},
     "sampling": {
-        # lg, noise, temps, out, S, V, stream
-        "sample_tokens": [_P] * 4 + [_I] * 2 + [_P]},
+        # lg, noise, temps, out, S, V, blocks per row, stream
+        "sample_tokens": [_P] * 4 + [_I] * 3 + [_P]},
     "paged_gather": {
         # pool, pt, out, entries, P, page_bytes, vec_bytes, stream
         "gather_pages": [_P] * 3 + [_I] * 2 + [_L, _I, _P]},

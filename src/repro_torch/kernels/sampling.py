@@ -13,8 +13,10 @@ per-row key ``fold_in(fold_in(fold_in(key, row), tag), counter)``
 (``repro_torch.random``), so tempered streams match the reference's token
 for token, as greedy ones do.
 
-Beside the kernel: its plain version (:func:`sample_plain`) and a launch
-counter, ``sample.launches``.
+Beside the kernel: its plain version (:func:`sample_plain`), a launch
+counter, ``sample.launches``, and :func:`row_slices`, the cut of a row over
+the kernel's cluster of blocks, which ``chip_smoke.py`` uses to put exact
+ties on every slice boundary.
 """
 from __future__ import annotations
 
@@ -42,10 +44,34 @@ def sample_plain(lg: torch.Tensor, noise: torch.Tensor,
     return torch.where(temps > 0.0, argmax_low(hot), argmax_low(lg))
 
 
-def sample(lg: torch.Tensor, noise: torch.Tensor,
-           temps: torch.Tensor) -> torch.Tensor:
-    """(S,) int32 tokens. A CUDA tensor launches K3 (or raises); a CPU
-    tensor runs the plain version."""
+# Blocks (one thread-block cluster) per row: the fastest of 4, 8 and 16 at
+# the serving shapes, (4, 151936) and (4, 129280), on the H100 (chip_smoke.py
+# phase_k3 prints the sweep). 16 is the card's largest cluster, a
+# non-portable size that needs 16 free SMs in one GPC, as the H100 SXM has;
+# where a card has none, the launch fails and raises (8 is portable).
+BLOCKS_PER_ROW = 16
+MAX_BLOCKS_PER_ROW = 16
+
+
+def row_slices(v: int, blocks: int, row: int = 0) -> list[tuple[int, int]]:
+    """The contiguous [start, stop) of row ``row`` of an (S, V) tensor with
+    a 16-byte-aligned base that each of the kernel's ``blocks`` scans, as
+    ``csrc/sampling.cu``'s ``slice_edge`` cuts it. The first
+    ``(-row * V) % 4`` elements precede the row's first 16-byte-aligned
+    one; internal boundaries fall on aligned elements and split the row's
+    aligned float4s evenly."""
+    head = min((-row * v) % 4, v)
+    n4 = (v - head) // 4
+    edges = [0] + [head + 4 * (p * n4 // blocks)
+                   for p in range(1, blocks)] + [v]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def sample(lg: torch.Tensor, noise: torch.Tensor, temps: torch.Tensor, *,
+           blocks_per_row: int = BLOCKS_PER_ROW) -> torch.Tensor:
+    """(S,) int32 tokens. A CUDA tensor launches K3 (or raises) with
+    ``blocks_per_row`` blocks, one cluster, per row; a CPU tensor runs the
+    plain version."""
     if lg.ndim != 2 or noise.shape != lg.shape or temps.shape != lg.shape[:1]:
         raise ValueError(f"shapes lg {tuple(lg.shape)}, noise "
                          f"{tuple(noise.shape)}, temps {tuple(temps.shape)}:"
@@ -58,11 +84,17 @@ def sample(lg: torch.Tensor, noise: torch.Tensor,
         raise ValueError("all operands must lie on the same CUDA device")
     if not all(t.is_contiguous() for t in (lg, noise, temps)):
         raise ValueError("operands must be contiguous")
+    if (lg.data_ptr() - noise.data_ptr()) % 16:
+        raise ValueError("lg and noise must agree in address modulo 16 "
+                         "(the kernel reads both in aligned 16-byte units)")
+    if not 1 <= blocks_per_row <= MAX_BLOCKS_PER_ROW:
+        raise ValueError(f"blocks_per_row {blocks_per_row}: 1 to "
+                         f"{MAX_BLOCKS_PER_ROW}")
     s, v = lg.shape
     out = torch.empty((s,), dtype=torch.int32, device=lg.device)
     err = _build.load("sampling").sample_tokens(
         lg.data_ptr(), noise.data_ptr(), temps.data_ptr(), out.data_ptr(),
-        s, v, _build.stream_ptr())
+        s, v, blocks_per_row, _build.stream_ptr())
     _build.check(err, "sampling")
     sample.launches += 1
     return out

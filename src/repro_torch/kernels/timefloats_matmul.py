@@ -16,6 +16,8 @@ kernel launch.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.timefloats import (QuantizedOperand, TFConfig,
@@ -24,8 +26,10 @@ from repro_torch.kernels import _build, dispatch, ref
 
 BLOCK = 64       # crossbar height the kernels are written for
 TILE_N = 128     # K1: output columns per CUDA block
-TILE_M_T = 64    # K2: output rows per CUDA block
+TILE_M_T = 128   # K2: output rows per CUDA block (two wgmma warpgroups)
 PLANES_T = 2     # K2: weight planes (64 output columns each) per CUDA block
+MIN_CHUNKS_PER_SPLIT = 8   # K2: a split's run of N must fill its stage ring
+MAX_SPLITS = 8             # K2: a tile's splits form one (portable) cluster
 
 
 def tile_m(m: int) -> int:
@@ -148,25 +152,63 @@ def _check_t(qg, sg, qw, sw, cfg: TFConfig) -> None:
             raise ValueError("operands must be contiguous")
 
 
+def split_plan(d_chunks: int, splits: int) -> list[tuple[int, int]]:
+    """K2's cut of the contraction: split s takes the 64-chunks
+    [s*D // splits, (s+1)*D // splits), as ``csrc/timefloats_matmul_
+    transposed.cu`` computes it in each block."""
+    return [(s * d_chunks // splits, (s + 1) * d_chunks // splits)
+            for s in range(splits)]
+
+
+def k2_splits(m: int, c: int, d_chunks: int, sms: int) -> int:
+    """How many runs of N a K2 call cuts its contraction into: of the
+    counts that keep the (M/128) * (C/2) * splits blocks, one per SM at a
+    time, within one wave of the card's ``sms`` (rounded up), with at least
+    ``MIN_CHUNKS_PER_SPLIT`` chunks a split, the one that leaves the fewest
+    SMs idle (the least among equals)."""
+    tiles = (m // TILE_M_T) * (c // PLANES_T)
+    most = min(math.ceil(sms / tiles), d_chunks // MIN_CHUNKS_PER_SPLIT,
+               MAX_SPLITS)
+    best, best_use = 1, 0.0
+    for splits in range(1, max(1, most) + 1):
+        blocks = tiles * splits
+        use = blocks / (math.ceil(blocks / sms) * sms)
+        if use > best_use + 1e-9:
+            best, best_use = splits, use
+    return best
+
+
 def timefloats_matmul_transposed_quantized(qg: torch.Tensor, sg: torch.Tensor,
                                            qw: torch.Tensor, sw: torch.Tensor,
-                                           *, cfg: TFConfig) -> torch.Tensor:
+                                           *, cfg: TFConfig,
+                                           splits: int | None = None
+                                           ) -> torch.Tensor:
     """(D,M,64) int8 gradient planes x the stored (C,64,N=D*64) weight
     planes, with (D,M), (C,N) f32 scales -> dx (M, C*64) f32. Operands must
     be padded (M to ``TILE_M_T``, C to ``PLANES_T``; kernels/ops.py does
-    it). A CUDA tensor launches K2 (or raises); a CPU tensor runs the plain
-    version."""
+    it). A CUDA tensor launches K2 (or raises), its contraction cut into
+    ``splits`` runs (default :func:`k2_splits` for the card); a CPU tensor
+    runs the plain version."""
     _check_t(qg, sg, qw, sw, cfg)
     if not dispatch.use_kernel(qg):
         return timefloats_matmul_transposed_plain(qg, sg, qw, sw)
     if not all(t.is_cuda and t.device == qg.device for t in (sg, qw, sw)):
         raise ValueError("all operands must lie on the same CUDA device")
+    if any(t.data_ptr() % 16 for t in (qg, sg, qw, sw)):
+        raise ValueError("K2's bulk copies need 16-byte-aligned operands")
+    if cfg.fmt.man_bits > 5:
+        raise ValueError("K2 converts codes |q| <= 63 (man_bits <= 5)")
     d, m, _ = qg.shape
     c = qw.shape[0]
+    if splits is None:
+        splits = k2_splits(m, c, d, torch.cuda.get_device_properties(
+            qg.device).multi_processor_count)
+    if not 1 <= splits <= min(d, MAX_SPLITS):
+        raise ValueError(f"splits={splits}: 1 to min(D={d}, {MAX_SPLITS})")
     out = torch.empty((m, c * BLOCK), dtype=torch.float32, device=qg.device)
     err = _build.load("timefloats_matmul_transposed").tf_matmul_t(
         qg.data_ptr(), sg.data_ptr(), qw.data_ptr(), sw.data_ptr(),
-        out.data_ptr(), d, m, c, _build.stream_ptr())
+        out.data_ptr(), d, m, c, splits, _build.stream_ptr())
     _build.check(err, "timefloats_matmul_transposed")
     timefloats_matmul_transposed_quantized.launches += 1
     return out

@@ -69,3 +69,77 @@ def test_sample_rejects_bad_operands():
         tsamp.sample(lg, torch.zeros(2, 7), torch.zeros(2))
     with pytest.raises(TypeError):
         tsamp.sample(lg.double(), lg.double(), torch.zeros(2))
+
+
+V_EDGE = 301  # odd: rows start off the 16-byte grid, as a split row meets
+
+
+def _edge(case: str):
+    """Two rows of V_EDGE, the first greedy and the second at temperature
+    0.8, holding one edge a row split over blocks can get wrong; returns
+    (lg, noise, temps, expected tokens or None)."""
+    rng = np.random.default_rng(7)
+    v = V_EDGE
+    lg = np.round(rng.standard_normal((2, v)) * 8) / 4
+    noise = np.zeros((2, v))
+    want = None
+    if case == "all_neg_inf":
+        lg[:] = -np.inf
+        noise = rng.gumbel(size=(2, v))
+        want = [0, 0]
+    elif case == "max_at_last":
+        lg[:, v - 1] = lg.max() + 1.0
+        want = [v - 1, v - 1]
+    elif case == "tie_first_and_last":
+        lg[:, 0] = lg[:, v - 1] = lg.max() + 1.0
+        want = [0, 0]
+    elif case == "noise_decides":
+        lg[:] = 0.0
+        noise = np.round(rng.gumbel(size=(2, v)) * 4) / 4
+        noise[1, 150] = noise.max() + 1.0
+        want = [0, 150]
+    elif case == "odd_v_random":
+        noise = np.round(rng.gumbel(size=(2, v)) * 4) / 4
+        lg[:, rng.choice(v, 4, replace=False)] = lg.max() + 0.5
+    temps = np.array([0.0, 0.8], np.float32)
+    return lg.astype(np.float32), noise.astype(np.float32), temps, want
+
+
+@pytest.mark.parametrize("case", ["all_neg_inf", "max_at_last",
+                                  "tie_first_and_last", "noise_decides",
+                                  "odd_v_random"])
+def test_sample_row_edges_match_reference(case):
+    """The cases a row cut over a cluster of blocks can get wrong: an all
+    -inf row (token 0), the maximum at index V-1, a tie between index 0 and
+    V-1, a temperature row won only through its noise, and an odd V. The
+    port's sampler against interpret-mode Pallas and ``argmax_low``."""
+    lg, noise, temps, want = _edge(case)
+    ref = np.asarray(jsamp._sample_pallas(
+        jnp.asarray(lg), jnp.asarray(noise), jnp.asarray(temps),
+        interpret=True))
+    low = np.asarray(jsamp.argmax_low(
+        jnp.asarray(np.stack([lg[0], lg[1] / np.float32(0.8) + noise[1]])),
+        axis=-1))
+    got = tsamp.sample(torch.from_numpy(lg), torch.from_numpy(noise),
+                       torch.from_numpy(temps)).numpy()
+    assert_bitwise(got, ref, f"{case}: vs Pallas")
+    assert_bitwise(got, low, f"{case}: vs argmax_low")
+    if want is not None:
+        assert got.tolist() == want
+
+
+@pytest.mark.parametrize("v", [151936, 129280, 151937, V_EDGE, 5, 3])
+def test_row_slices_cover_each_row_once(v):
+    """The kernel's cut of a row over 1-16 blocks: contiguous, in order,
+    covering [0, V) exactly once, with every internal boundary on a
+    16-byte-aligned element of the row."""
+    for blocks in (1, 4, 8, 16):
+        for row in range(4):
+            cuts = tsamp.row_slices(v, blocks, row)
+            assert len(cuts) == blocks
+            assert cuts[0][0] == 0 and cuts[-1][1] == v
+            assert all(a <= b for a, b in cuts)
+            assert all(cuts[i][1] == cuts[i + 1][0]
+                       for i in range(blocks - 1))
+            inner = [b for _, b in cuts[:-1] if 0 < b < v]
+            assert all((row * v + b) % 4 == 0 for b in inner)

@@ -123,6 +123,71 @@ def test_k2_wrapper_rejects_adc_and_unpadded_operands():
             qg.q, qg.scale, qw3.q, qw3.scale, cfg=ct)
 
 
+def _qwen3_k2_shapes():
+    """(M, K, N) of every dx of a qwen3-0.6b training step at the smoke's
+    batch (4 x 256 rows): q, k/v, o, gate/up, down and the tied head."""
+    c = get_config("qwen3-0.6b")
+    d, hd, f = c.d_model, c.resolved_head_dim, c.d_ff
+    kn = {(d, c.n_heads * hd), (d, c.n_kv_heads * hd), (c.n_heads * hd, d),
+          (d, f), (f, d), (d, c.vocab_size)}
+    return sorted((1024, k, n) for k, n in kn)
+
+
+@pytest.mark.parametrize("m,k,n", _qwen3_k2_shapes() + [(1000, 1000, 3000)])
+def test_k2_split_plan_covers_every_chunk_once(m, k, n):
+    """K2's cut of the contraction at the split count its wrapper picks on
+    a 132-SM card (and at every count up to the chunk count): contiguous
+    runs of whole 64-chunks, in order, none empty, covering every chunk of
+    N exactly once."""
+    blk, bm, bc = tkm.BLOCK, tkm.TILE_M_T, tkm.PLANES_T
+    m_pad = -(-m // bm) * bm
+    c = -(-k // blk)
+    c += (-c) % bc
+    d = -(-n // blk)
+    rule = tkm.k2_splits(m_pad, c, d, sms=132)
+    assert 1 <= rule <= d
+    for splits in sorted({rule, 1, 2, 3, min(d, 64), d}):
+        plan = tkm.split_plan(d, splits)
+        assert len(plan) == splits
+        assert plan[0][0] == 0 and plan[-1][1] == d
+        assert all(lo < hi for lo, hi in plan)
+        assert all(plan[i][1] == plan[i + 1][0] for i in range(splits - 1))
+
+
+def test_k2_padding_at_a_ragged_shape():
+    """``padded_transposed_operands`` at a ragged (M, N, K): M to the
+    128-row tile, C to whole pairs of planes and qw's N to g's chunks, pad
+    rows and planes zero with scale 1; the plain version on the padded
+    operands, cut back, stays within the f32 summation bound of the
+    reference's ``matmul_separable_transposed``."""
+    m, n, k = 130, 200, 190
+    rng = np.random.default_rng(9)
+    g = (rng.standard_normal((m, n)) * 2.0 ** -2).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.1).astype(np.float32)
+    cj, ct = jtf.TFConfig(mode="pallas"), ttf.TFConfig(mode="pallas")
+
+    @jax.jit
+    def reference(g, w):
+        qw = jtf.quantize_weight(w, cj)
+        return qw, jtf.matmul_separable_transposed(g, qw, k, cj)
+
+    qw, want = reference(jnp.asarray(g), jnp.asarray(w))
+    qwt = ttf.QuantizedOperand(torch.from_numpy(np.array(qw.q)),
+                               torch.from_numpy(np.array(qw.scale)))
+    qgt = ttf.quantize_input(torch.from_numpy(g), ct)
+    pg, psg, pw, psw = tops.padded_transposed_operands(qgt, qwt)
+    assert pg.shape == (4, 256, 64) and psg.shape == (4, 256)
+    assert pw.shape == (4, 64, 256) and psw.shape == (4, 256)
+    assert not pg[:, m:].any() and bool((psg[:, m:] == 1).all())
+    assert not pw[3].any() and bool((psw[3] == 1).all())
+    got = tkm.timefloats_matmul_transposed_quantized(pg, psg, pw, psw,
+                                                     cfg=ct)[:m, :k]
+    gd = ttf.dequantize_input(qgt, n)
+    wd = ttf.dequantize_weight(qwt, k)
+    _within(got.numpy(), np.asarray(want),
+            _sum_bound(gd.numpy(), wd.numpy()), "K2 padded plain vs reference")
+
+
 # -- (b) linear's forward and backward --------------------------------------
 
 
