@@ -18,7 +18,8 @@
 //
 // Design. A grid of (P, S) blocks in clusters of P (cluster dims set at
 // launch, so P is a runtime choice: 4, 8, or 16 with the non-portable size
-// allowed). Block p of row s scans its contiguous slice of the row
+// allowed; the wrapper takes the largest that `sample_max_clusters`, the
+// occupancy query, says the card can place). Block p of row s scans its contiguous slice of the row
 // (`row_slices` in kernels/sampling.py mirrors the cut: internal boundaries
 // fall on 16-byte-aligned elements, so only block 0's head and block P-1's
 // tail are scalar) with 16-byte read-only loads, kUnroll of them in flight
@@ -179,6 +180,55 @@ sample_kernel(const float* __restrict__ lg, const float* __restrict__ noise,
 
 }  // namespace
 
+namespace {
+
+// Allow the non-portable cluster sizes (9 to 16 blocks) once.
+cudaError_t allow_large_clusters() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      sample_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  done = e == cudaSuccess;
+  return e;
+}
+
+cudaLaunchConfig_t launch_config(int P, int S, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P, S, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+}  // namespace
+
+// How many clusters of P blocks the card can hold at once
+// (cudaOccupancyMaxActiveClusters), into *count: 0 where no GPC of this
+// card or partition has P free SMs. The wrapper picks its cluster size
+// with it.
+extern "C" int sample_max_clusters(int P, void* count) {
+  if (P <= 0 || P > kMaxCluster) return (int)cudaErrorInvalidValue;
+  if (P > 8) {
+    const cudaError_t e = allow_large_clusters();
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(P, 1, nullptr, attr);
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, sample_kernel,
+                                                       &cfg);
+  *static_cast<int*>(count) = e == cudaSuccess ? n : 0;
+  return e == cudaSuccess ? 0 : (int)e;
+}
+
 // P blocks (a cluster) per row: 1 to 8 portably, up to 16 as a
 // non-portable cluster size. The Python wrapper checks shapes, types,
 // contiguity and that lg and noise agree in address modulo 16.
@@ -188,22 +238,12 @@ extern "C" int sample_tokens(const void* lg, const void* noise,
   if (S <= 0 || V <= 0 || P <= 0 || P > kMaxCluster || S > 65535)
     return (int)cudaErrorInvalidValue;
   if (P > 8) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sample_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    const cudaError_t e = allow_large_clusters();
     if (e != cudaSuccess) return (int)e;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(P, S, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = P;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg = launch_config(
+      P, S, static_cast<cudaStream_t>(stream), attr);
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, sample_kernel, static_cast<const float*>(lg),
       static_cast<const float*>(noise), static_cast<const float*>(temps),

@@ -36,14 +36,17 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # point returns an int (its cudaGetLastError()).
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "timefloats_matmul": {
-        # qx, sx, qw, sw, out, C, M, N, adc, fs, levels, step, stream
-        "tf_matmul": [_P] * 5 + [_I] * 4 + [_F] * 3 + [_P]},
+        # qx, sx, qw, sw, out, C, M, N, config, splits, adc, fs, levels,
+        # step, stream
+        "tf_matmul": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P]},
     "timefloats_matmul_transposed": {
         # qg, sg, qw, sw, out, D, M, C, splits, stream
         "tf_matmul_t": [_P] * 5 + [_I] * 4 + [_P]},
     "sampling": {
         # lg, noise, temps, out, S, V, blocks per row, stream
-        "sample_tokens": [_P] * 4 + [_I] * 3 + [_P]},
+        "sample_tokens": [_P] * 4 + [_I] * 3 + [_P],
+        # blocks per row, int* count of clusters the card can hold
+        "sample_max_clusters": [_I, _P]},
     "paged_gather": {
         # pool, pt, out, entries, P, page_bytes, vec_bytes, stream
         "gather_pages": [_P] * 3 + [_I] * 2 + [_L, _I, _P]},
@@ -121,6 +124,23 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype, fn.argtypes = ctypes.c_int, argtypes
         _LOADED[name] = lib
     return lib
+
+
+_SMS: Dict[int, int] = {}
+
+
+def device_index(device) -> int:
+    """The CUDA device index ``device`` names (the current one if none)."""
+    idx = torch.device(device).index
+    return torch.cuda.current_device() if idx is None else idx
+
+
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors (queried once per device)."""
+    idx = device_index(device)
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def stream_ptr() -> ctypes.c_void_p:

@@ -2,9 +2,10 @@
 ``repro.kernels.ops``).
 
 ``timefloats_matmul(x, w, cfg)`` is what ``core.timefloats.matmul`` calls in
-``mode="pallas"``: it quantizes both operands, pads them to K1's tile (M to
-8 or 64 rows, N to 128 columns; pad blocks carry scale 1 and zero planes,
-so they contribute nothing), runs K1 and slices the result back.
+``mode="pallas"``: it quantizes both operands, pads them to K1's granule (M
+to 8 rows, N to 16 columns; pad blocks carry scale 1 and zero planes, so
+they contribute nothing; the kernel masks the edges of its own tiles), runs
+K1 and slices the result back.
 ``quantized_matmul`` does the same on operands already quantized (the
 training path's cache entries). ``timefloats_matmul_transposed(g, qw,
 k_dim, cfg)`` is the backward's dx: it quantizes only ``g``, along its
@@ -36,10 +37,10 @@ def _pad_to(a: torch.Tensor, mults: Sequence[int],
 
 def padded_operands(qx: QuantizedOperand, qw: QuantizedOperand
                     ) -> tuple[torch.Tensor, ...]:
-    """(qx, sx, qw, sw) padded to K1's tile: M to ``tile_m(M)`` rows, N to
-    ``TILE_N`` columns, pad blocks with zero planes and scale 1."""
-    _, m_dim, blk = qx.q.shape
-    bm, bn = kernel_mod.tile_m(m_dim), kernel_mod.TILE_N
+    """(qx, sx, qw, sw) padded to K1's granule: M to ``PAD_M`` rows, N to
+    ``PAD_N`` columns, pad blocks with zero planes and scale 1."""
+    blk = qx.q.shape[2]
+    bm, bn = kernel_mod.PAD_M, kernel_mod.PAD_N
     return (_pad_to(qx.q, (1, bm, blk)).contiguous(),
             _pad_to(qx.scale, (1, bm), pad_value=1.0).contiguous(),
             _pad_to(qw.q, (1, blk, bn)).contiguous(),

@@ -20,6 +20,8 @@ ties on every slice boundary.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch import random as rnd
@@ -44,13 +46,44 @@ def sample_plain(lg: torch.Tensor, noise: torch.Tensor,
     return torch.where(temps > 0.0, argmax_low(hot), argmax_low(lg))
 
 
-# Blocks (one thread-block cluster) per row: the fastest of 4, 8 and 16 at
-# the serving shapes, (4, 151936) and (4, 129280), on the H100 (chip_smoke.py
-# phase_k3 prints the sweep). 16 is the card's largest cluster, a
-# non-portable size that needs 16 free SMs in one GPC, as the H100 SXM has;
-# where a card has none, the launch fails and raises (8 is portable).
-BLOCKS_PER_ROW = 16
+# Blocks (one thread-block cluster) per row, in order of preference: 16 was
+# the fastest of 4, 8 and 16 at the serving shapes, (4, 151936) and (4,
+# 129280), on the H100 (chip_smoke.py phase_k3 prints the sweep), 8 next.
+# 16 is a non-portable cluster size that needs 16 free SMs in one GPC, as
+# the H100 SXM has; :func:`cluster_blocks` takes the largest the card can
+# place. The three give the same bits.
+CLUSTER_CHOICES = (16, 8, 4)
 MAX_BLOCKS_PER_ROW = 16
+_PICKED: dict = {}
+
+
+def pick_blocks_per_row(max_clusters) -> int:
+    """The first of :data:`CLUSTER_CHOICES` of which ``max_clusters(p)``,
+    the count of p-block clusters the card can hold at once, is positive."""
+    for p in CLUSTER_CHOICES:
+        if max_clusters(p) > 0:
+            return p
+    raise RuntimeError(f"no cluster of {CLUSTER_CHOICES[-1]} blocks fits "
+                       "on this card")
+
+
+def cluster_blocks(device) -> int:
+    """K3's cluster size on ``device``, picked once per device by
+    ``cudaOccupancyMaxActiveClusters`` (the ``sample_max_clusters`` entry
+    point)."""
+    idx = _build.device_index(device)
+    if idx not in _PICKED:
+        lib = _build.load("sampling")
+
+        def max_clusters(p: int) -> int:
+            n = ctypes.c_int(0)
+            with torch.cuda.device(idx):
+                _build.check(lib.sample_max_clusters(p, ctypes.byref(n)),
+                             "sampling (cluster occupancy)")
+            return n.value
+
+        _PICKED[idx] = pick_blocks_per_row(max_clusters)
+    return _PICKED[idx]
 
 
 def row_slices(v: int, blocks: int, row: int = 0) -> list[tuple[int, int]]:
@@ -68,10 +101,11 @@ def row_slices(v: int, blocks: int, row: int = 0) -> list[tuple[int, int]]:
 
 
 def sample(lg: torch.Tensor, noise: torch.Tensor, temps: torch.Tensor, *,
-           blocks_per_row: int = BLOCKS_PER_ROW) -> torch.Tensor:
+           blocks_per_row: int | None = None) -> torch.Tensor:
     """(S,) int32 tokens. A CUDA tensor launches K3 (or raises) with
-    ``blocks_per_row`` blocks, one cluster, per row; a CPU tensor runs the
-    plain version."""
+    ``blocks_per_row`` blocks, one cluster, per row (default
+    :func:`cluster_blocks` for the card); a CPU tensor runs the plain
+    version."""
     if lg.ndim != 2 or noise.shape != lg.shape or temps.shape != lg.shape[:1]:
         raise ValueError(f"shapes lg {tuple(lg.shape)}, noise "
                          f"{tuple(noise.shape)}, temps {tuple(temps.shape)}:"
@@ -87,6 +121,8 @@ def sample(lg: torch.Tensor, noise: torch.Tensor, temps: torch.Tensor, *,
     if (lg.data_ptr() - noise.data_ptr()) % 16:
         raise ValueError("lg and noise must agree in address modulo 16 "
                          "(the kernel reads both in aligned 16-byte units)")
+    if blocks_per_row is None:
+        blocks_per_row = cluster_blocks(lg.device)
     if not 1 <= blocks_per_row <= MAX_BLOCKS_PER_ROW:
         raise ValueError(f"blocks_per_row {blocks_per_row}: 1 to "
                          f"{MAX_BLOCKS_PER_ROW}")

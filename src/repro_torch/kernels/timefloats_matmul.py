@@ -17,6 +17,7 @@ kernel launch.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -25,16 +26,109 @@ from repro_torch.core.timefloats import (QuantizedOperand, TFConfig,
 from repro_torch.kernels import _build, dispatch, ref
 
 BLOCK = 64       # crossbar height the kernels are written for
-TILE_N = 128     # K1: output columns per CUDA block
+PAD_M = 8        # K1: rows are padded to this (the kernel's TMA boxes)
+PAD_N = 16       # K1: columns are padded to this (16-byte weight rows)
 TILE_M_T = 128   # K2: output rows per CUDA block (two wgmma warpgroups)
 PLANES_T = 2     # K2: weight planes (64 output columns each) per CUDA block
 MIN_CHUNKS_PER_SPLIT = 8   # K2: a split's run of N must fill its stage ring
-MAX_SPLITS = 8             # K2: a tile's splits form one (portable) cluster
+MAX_SPLITS = 8             # K1, K2: a tile's splits form one (portable) cluster
+SMEM_LIMIT = 232448        # shared memory a block may use on the card
 
 
-def tile_m(m: int) -> int:
-    """Rows per CUDA block: 8 for decode-sized calls, else 64."""
-    return 8 if m <= 8 else 64
+class K1Config(NamedTuple):
+    """One of K1's tile configurations, as ``csrc/timefloats_matmul.cu``'s
+    switch in ``tf_matmul`` lists them: ``nt`` n8 token tiles per consumer
+    warp, ``wm`` x ``wn`` consumer warps (32 columns each), ``stages`` ring
+    depth."""
+
+    nt: int
+    wm: int
+    wn: int
+    stages: int
+
+    @property
+    def bm(self) -> int:
+        return 8 * self.nt * self.wm
+
+    @property
+    def bn(self) -> int:
+        return 32 * self.wn
+
+    def smem(self, terms: int) -> int:
+        """Dynamic shared memory of a launch keeping ``terms`` chunks of
+        terms (the kernel's ``Cfg::smem_bytes``)."""
+        r128 = lambda b: -(-b // 128) * 128  # noqa: E731
+        stage = (BLOCK * self.bn + self.bm * BLOCK + r128(4 * self.bm)
+                 + r128(4 * self.bn))
+        return (1024 + self.stages * stage + 16 * self.stages
+                + terms * self.bm * self.bn * 4)
+
+
+CONFIGS = (K1Config(1, 1, 1, 16), K1Config(1, 1, 4, 6),    # decode, BM 8
+           K1Config(4, 1, 1, 10), K1Config(4, 1, 2, 8),     # prefill, BM 32
+           K1Config(4, 1, 4, 5),
+           K1Config(4, 2, 4, 4), K1Config(4, 2, 2, 5))      # training
+SMALL_M = {8: (1, 0), 32: (4, 3, 2)}      # config indices, widest first
+LARGE_M = (5, 6)                          # 64x128, 64x64
+SPLIT_MAX_M = 256       # above it, no split: the terms do not fit
+SPLIT_MIN_C = 32        # below it, no split: a cluster costs more than it saves
+FILL = 15 / 16          # a plan fills the card at this share of its SMs
+
+
+class K1Plan(NamedTuple):
+    config: int     # index into CONFIGS
+    splits: int     # blocks (one cluster) sharing each tile's chunks
+
+
+def split_chunks(c: int, splits: int) -> list[tuple[int, int]]:
+    """The chunks [c_lo, c_hi) that each of a tile's ``splits`` blocks
+    computes, as the kernel cuts them."""
+    return [(r * c // splits, (r + 1) * c // splits) for r in range(splits)]
+
+
+def k1_plan(m: int, c: int, n: int, sms: int) -> K1Plan:
+    """K1's tile and split for an (M, C chunks, N) call on a card with
+    ``sms`` SMs. Decode (M <= 8) and prefill (M <= 256) are bytes-bound with
+    few tiles: the widest tile that fills the card, else the narrowest,
+    split (from ``SPLIT_MIN_C`` chunks on) into the fewest splits that fill
+    it (at most 8, at most C, terms fitting shared memory), else the most
+    that fit. Larger M is operations-bound: the larger tile if it fills the
+    card, else the smaller, unsplit (a split's terms would not fit). The
+    choices follow chip_smoke.py's sweeps on the H100 (PERF.md)."""
+    fill = FILL * sms
+    tiles = lambda i: (-(-m // CONFIGS[i].bm)) * (-(-n // CONFIGS[i].bn))  # noqa: E731
+    if m > SPLIT_MAX_M:
+        for i in LARGE_M:
+            if tiles(i) >= fill:
+                return K1Plan(i, 1)
+        return K1Plan(LARGE_M[-1], 1)
+    family = SMALL_M[8] if m <= 8 else SMALL_M[32]
+    for i in family:
+        if tiles(i) >= fill:
+            return K1Plan(i, 1)
+    i = family[-1]
+    best = 1
+    most = min(MAX_SPLITS, c) if c >= SPLIT_MIN_C else 1
+    for s in range(2, most + 1):
+        if CONFIGS[i].smem(-(-c // s)) > SMEM_LIMIT:
+            continue
+        best = s
+        if tiles(i) * s >= fill:
+            break
+    return K1Plan(i, best)
+
+
+def check_plan(plan: K1Plan, m: int, c: int, n: int) -> None:
+    """Raise unless the kernel takes ``plan`` for an (M, C, N) call."""
+    if not 0 <= plan.config < len(CONFIGS):
+        raise ValueError(f"K1 config {plan.config}: 0 to {len(CONFIGS) - 1}")
+    if not 1 <= plan.splits <= min(c, MAX_SPLITS):
+        raise ValueError(f"K1 splits={plan.splits}: 1 to min(C={c}, "
+                         f"{MAX_SPLITS})")
+    terms = -(-c // plan.splits) if plan.splits > 1 else 0
+    if CONFIGS[plan.config].smem(terms) > SMEM_LIMIT:
+        raise ValueError(f"K1 {plan}: the split's terms do not fit in shared "
+                         "memory")
 
 
 def timefloats_matmul_plain(qx: torch.Tensor, sx: torch.Tensor,
@@ -62,9 +156,9 @@ def _check(qx, sx, qw, sw, cfg: TFConfig) -> None:
         raise TypeError("qx and qw must be int8")
     if sx.dtype != torch.float32 or sw.dtype != torch.float32:
         raise TypeError("sx and sw must be float32")
-    if m % tile_m(m) or n % TILE_N:
-        raise ValueError(f"M={m}, N={n}: pad M to {tile_m(m)} and N to "
-                         f"{TILE_N} first (kernels/ops.py)")
+    if m % PAD_M or n % PAD_N:
+        raise ValueError(f"M={m}, N={n}: pad M to {PAD_M} and N to "
+                         f"{PAD_N} first (kernels/ops.py)")
     for t in (qx, sx, qw, sw):
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
@@ -72,26 +166,34 @@ def _check(qx, sx, qw, sw, cfg: TFConfig) -> None:
 
 def timefloats_matmul_quantized(qx: torch.Tensor, sx: torch.Tensor,
                                 qw: torch.Tensor, sw: torch.Tensor, *,
-                                cfg: TFConfig) -> torch.Tensor:
+                                cfg: TFConfig,
+                                plan: K1Plan | None = None) -> torch.Tensor:
     """(C,M,64) int8 x (C,64,N) int8 with (C,M), (C,N) f32 scales -> (M,N)
     f32, chunks accumulated in order. Operands must be padded (M to
-    ``tile_m(M)``, N to ``TILE_N``; kernels/ops.py does it). A CUDA tensor
-    launches K1 (or raises); a CPU tensor runs the plain version."""
+    ``PAD_M``, N to ``PAD_N``; kernels/ops.py does it). A CUDA tensor
+    launches K1 (or raises) with ``plan`` (default :func:`k1_plan` for the
+    card); a CPU tensor runs the plain version."""
     _check(qx, sx, qw, sw, cfg)
     if not dispatch.use_kernel(qx):
         return timefloats_matmul_plain(qx, sx, qw, sw, cfg)
     if not all(t.is_cuda and t.device == qx.device for t in (sx, qw, sw)):
         raise ValueError("all operands must lie on the same CUDA device")
+    if any(t.data_ptr() % 16 for t in (qx, sx, qw, sw)):
+        raise ValueError("K1's tensor-map copies need 16-byte-aligned "
+                         "operands")
     c, m, _ = qx.shape
     n = qw.shape[2]
+    if plan is None:
+        plan = k1_plan(m, c, n, _build.sm_count(qx.device))
+    check_plan(plan, m, c, n)
     out = torch.empty((m, n), dtype=torch.float32, device=qx.device)
     adc = cfg.adc_bits is not None
     fs, levels, step = ((float(v) for v in adc_constants(cfg)) if adc
                         else (1.0, 1.0, 1.0))
     err = _build.load("timefloats_matmul").tf_matmul(
         qx.data_ptr(), sx.data_ptr(), qw.data_ptr(), sw.data_ptr(),
-        out.data_ptr(), c, m, n, int(adc), fs, levels, step,
-        _build.stream_ptr())
+        out.data_ptr(), c, m, n, plan.config, plan.splits, int(adc), fs,
+        levels, step, _build.stream_ptr())
     _build.check(err, "timefloats_matmul")
     timefloats_matmul_quantized.launches += 1
     return out
@@ -201,8 +303,7 @@ def timefloats_matmul_transposed_quantized(qg: torch.Tensor, sg: torch.Tensor,
     d, m, _ = qg.shape
     c = qw.shape[0]
     if splits is None:
-        splits = k2_splits(m, c, d, torch.cuda.get_device_properties(
-            qg.device).multi_processor_count)
+        splits = k2_splits(m, c, d, _build.sm_count(qg.device))
     if not 1 <= splits <= min(d, MAX_SPLITS):
         raise ValueError(f"splits={splits}: 1 to min(D={d}, {MAX_SPLITS})")
     out = torch.empty((m, c * BLOCK), dtype=torch.float32, device=qg.device)

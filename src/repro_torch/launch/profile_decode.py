@@ -50,7 +50,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.request import Request
 
-HAND_KERNELS = {"K1": "tf_matmul_kernel", "K2": "tf_matmul_t_kernel",
+HAND_KERNELS = {"K1": "tf_mma_kernel", "K2": "tf_matmul_t_kernel",
                 "K3": "sample_kernel", "K4": "gqa_", "K5": "mla_",
                 "K6": "gather_pages_kernel"}
 

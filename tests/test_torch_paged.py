@@ -331,3 +331,32 @@ def test_oversized_request_raises_as_reference(models):
         errors.append(str(e.value))
     assert errors[0] == errors[1]
     assert "more pages than the pool holds" in errors[1]
+
+
+def test_bf16_paged_drain_agrees_with_dense_as_the_reference_does(models):
+    """The port's fused paged drain with bf16 activations, as the card runs
+    it, against the reference engine on the same weights and requests. The
+    two frameworks round bf16 differently (XLA keeps excess precision
+    inside its fusions; ROADMAP, Queue 3), so their streams part after a
+    few tokens; what must hold is the reference's own promise, that the
+    paged engine agrees with the dense one: each framework's paged drain
+    agrees with its dense drain on the same count of streams (here all of
+    them)."""
+    cj, ct, pj, pt = models
+    cj, ct = (dataclasses.replace(c, dtype="bfloat16") for c in (cj, ct))
+    stream = _stream(cj.vocab_size)
+    ref = {paged: _drain(JEngine(pj, cj, slots=SLOTS, max_len=MAX_LEN,
+                                 paged=paged, page_size=PAGE,
+                                 track_energy=False), JRequest, stream)
+           for paged in (True, False)}
+    _pin_splits(cj, rows=SLOTS)
+    engines = {paged: Engine(pt, ct, slots=SLOTS, max_len=MAX_LEN,
+                             paged=paged, page_size=PAGE, device="cpu")
+               for paged in (True, False)}
+    got = {paged: _drain(eng, Request, stream)
+           for paged, eng in engines.items()}
+    agree = lambda d: sum(d[True][u] == d[False][u] for u in d[True])  # noqa: E731
+    assert sorted(got[True]) == sorted(ref[True]) == list(range(5))
+    assert agree(got) == agree(ref) == 5
+    assert engines[True].stats()["radix_hits"] > 0
+    assert engines[True].pool.conserved()

@@ -143,3 +143,26 @@ def test_row_slices_cover_each_row_once(v):
                        for i in range(blocks - 1))
             inner = [b for _, b in cuts[:-1] if 0 < b < v]
             assert all((row * v + b) % 4 == 0 for b in inner)
+
+
+def test_cluster_pick_takes_the_largest_cluster_that_fits():
+    """K3's blocks per row: the largest of 16, 8 and 4 of which the card can
+    hold a cluster (``cudaOccupancyMaxActiveClusters``, stubbed here: a
+    full H100, a partition whose GPCs have at most 8 free SMs, one with
+    only 4), asked in that order; none fitting raises."""
+    asked = []
+
+    def card(free_sms):
+        def max_clusters(p):
+            asked.append(p)
+            return 7 if p <= free_sms else 0
+        return max_clusters
+
+    assert tsamp.pick_blocks_per_row(card(18)) == 16
+    assert asked == [16]
+    asked.clear()
+    assert tsamp.pick_blocks_per_row(card(8)) == 8
+    assert asked == [16, 8]
+    assert tsamp.pick_blocks_per_row(card(5)) == 4
+    with pytest.raises(RuntimeError, match="no cluster"):
+        tsamp.pick_blocks_per_row(card(3))
