@@ -52,12 +52,16 @@ on any fault:
              and 8 kv heads of 128, bf16 pools of 16-token pages), tables
              of 1, 8 and 32 pages with ragged lengths (0 included) and
              trash entries: within 1e-6 of the plain version at n_splits
-             1, 2, 4 and 8 (bitwise expected: both sum in float64),
-             bitwise neutral to a covering table
-             prefix at one split; the n_splits that is fastest over the
-             three caps, kernel, plain and library (two gathers and
-             ``scaled_dot_product_attention`` with the length mask, three
-             calls) times and the bound of the live K/V bytes.
+             1, 2, 4 and 8 (bitwise expected: both sum in float64), and
+             at the CPU tests' small shapes (f32 pools, MQA G = 4, head
+             dims 8-32, rows that are not 16-byte multiples); two calls
+             bitwise equal; bitwise neutral to a covering table prefix
+             at one split; one device launch per call, as
+             ``torch.profiler`` counts it; the n_splits that is fastest
+             over the three caps, kernel, plain and library (two gathers
+             and ``scaled_dot_product_attention`` with the length mask,
+             three calls) times at every cap and the bound of the live
+             K/V bytes.
 8. serve   — qwen3-0.6b at full width (28 layers, random weights from
              --seed), TimeFloats ``mode="pallas"``, bf16 activations,
              Engine(slots=4, max_len=512), 8 requests (prompts of 5-60
@@ -762,33 +766,99 @@ def k4_case(torch, cfg, gen, n_tab: int):
     return q, kpool, vpool, pt, lens
 
 
+def k4_small_case(torch, gen, b, t, page, hkv, g, dk, dv, dtype):
+    """tests/test_torch_paged_attn.py's construction on the card: f32 q,
+    a random permutation of page ids, trash entries past each row's
+    extent, a length-0 row and a single-page row."""
+    n_pages = b * t + 2
+    q = torch.randn(b, hkv * g, dk, generator=gen, device="cuda")
+    kpool = torch.randn(n_pages, page, hkv, dk, generator=gen,
+                        device="cuda").to(dtype)
+    vpool = torch.randn(n_pages, page, hkv, dv, generator=gen,
+                        device="cuda").to(dtype)
+    lens = torch.randint(0, t * page + 1, (b,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    lens[0] = 0
+    if b > 1:
+        lens[1] = min(page, t * page)
+    ids = torch.randperm(n_pages - 1, generator=gen, device="cuda")[:b * t]
+    pt = (ids + 1).to(torch.int32).reshape(b, t)
+    live = (lens.to(torch.int64) + page - 1) // page
+    pt[torch.arange(t, device="cuda")[None, :] >= live[:, None]] = 0
+    return q, kpool, vpool, pt, lens
+
+
+def k4_hold(torch, kpa, case, ns: int, what: str) -> tuple[float, bool]:
+    """K4 against its plain version (gate K4_TOL of max(1, |plain|),
+    finite, length-0 rows exactly 0) and bitwise equal on two calls.
+    Returns (relative error, bitwise)."""
+    q, kpool, vpool, pt, lens = case
+    dk = q.shape[-1]
+    got = kpa.paged_decode_attention(q, kpool, vpool, pt, lens, n_splits=ns)
+    again = kpa.paged_decode_attention(q, kpool, vpool, pt, lens,
+                                       n_splits=ns)
+    want = kpa._combine(*kpa._gqa_plain(
+        q, kpool, vpool, pt, lens, scale=1.0 / math.sqrt(dk),
+        n_splits=kpa._norm_splits(ns, pt.shape[1],
+                                  page_size=kpool.shape[1],
+                                  heads=q.shape[1], head_dim=dk)))
+    torch.cuda.synchronize()
+    err = ((got - want).abs().max()
+           / want.abs().max().clamp_min(1.0)).item()
+    check(err <= K4_TOL and bool(torch.isfinite(got).all())
+          and bool((got[lens == 0] == 0).all()),
+          f"K4 {what} n_splits={ns}: max rel {err} > {K4_TOL} or a "
+          "length-0 row not exactly 0")
+    check(torch.equal(got, again), f"K4 {what} n_splits={ns}: two calls "
+          "differ")
+    return err, torch.equal(got, want)
+
+
+# tests/test_torch_paged_attn.py's GQA_CASES (b, t, page, hkv, g, dk, dv,
+# pool dtype, n_splits), and one whose 24- and 40-byte rows are not 16-byte
+# multiples (G = 3): the kernel stages those with loads, not cp.async.
+K4_SMALL = ((2, 4, 8, 2, 2, 16, 16, "float32", 4),
+            (1, 1, 4, 1, 1, 8, 8, "float32", 1),
+            (3, 2, 16, 1, 4, 32, 16, "bfloat16", 2),
+            (2, 8, 4, 4, 1, 16, 32, "bfloat16", 8),
+            (3, 4, 8, 2, 2, 32, 32, "float32", 2),
+            (2, 4, 8, 2, 3, 12, 20, "bfloat16", 2))
+# The earlier two-kernel K4 (split kernel + combine kernel) at the 8-page
+# cap, per launch, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
+K4_TWO_KERNEL_MS = "0.0197-0.0199"
+
+
 def phase_k4(torch, cfg, seed: int) -> dict:
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import paged_attn as kpa
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     hkv, d = cfg.n_kv_heads, cfg.resolved_head_dim
     times = {ns: 0.0 for ns in K4_SPLITS}
-    worst, exact, rec = 0.0, True, None
+    worst, exact, cases, lib_by_cap = 0.0, True, {}, {}
+
+    def library(case):
+        q, kpool, vpool, pt, lens = case
+        s_len = pt.shape[1] * PAGE
+        mask = (torch.arange(s_len, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+
+        def run():
+            k = kpool[pt].reshape(SLOTS, s_len, hkv, d).transpose(1, 2)
+            v = vpool[pt].reshape(SLOTS, s_len, hkv, d).transpose(1, 2)
+            return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        return run
+
     for n_tab in K4_CAPS:
-        q, kpool, vpool, pt, lens = k4_case(torch, cfg, gen, n_tab)
+        case = k4_case(torch, cfg, gen, n_tab)
+        q, kpool, vpool, pt, lens = case
         for ns in K4_SPLITS:
-            got = kpa.paged_decode_attention(q, kpool, vpool, pt, lens,
-                                             n_splits=ns)
-            want = kpa._combine(*kpa._gqa_plain(
-                q, kpool, vpool, pt, lens, scale=1.0 / math.sqrt(d),
-                n_splits=kpa._norm_splits(ns, n_tab, page_size=PAGE,
-                                          heads=cfg.n_heads, head_dim=d)))
-            torch.cuda.synchronize()
-            err = ((got - want).abs().max()
-                   / want.abs().max().clamp_min(1.0)).item()
-            worst = max(worst, err)
-            exact = exact and torch.equal(got, want)
-            check(err <= K4_TOL and bool(torch.isfinite(got).all())
-                  and bool((got[lens == 0] == 0).all()),
-                  f"K4 cap={n_tab} n_splits={ns}: max rel {err} > {K4_TOL}"
-                  " or a length-0 row not exactly 0")
+            err, same = k4_hold(torch, kpa, case, ns, f"cap={n_tab}")
+            worst, exact = max(worst, err), exact and same
         # A covering prefix of the table is neutral (one split: the same
         # live positions in the same order).
         if n_tab == 32:
@@ -806,35 +876,58 @@ def phase_k4(torch, cfg, seed: int) -> dict:
                 q, kpool, vpool, pt, lens, n_splits=ns), reps=50)
             times[ns] += t
             row.append(f"{ns}:{t:.4f}")
+        lib_by_cap[n_tab] = time_ms(torch, library(case), reps=50)
         print(f"K4 cap={n_tab:2d} pages lengths={lens.tolist()} ms by "
-              f"n_splits {' '.join(row)}", flush=True)
-        if n_tab == 8:  # the paged drain's usual cap (prompts up to 108)
-            rec = (q, kpool, vpool, pt, lens)
+              f"n_splits {' '.join(row)}; library_ms(2 gathers + sdpa)="
+              f"{lib_by_cap[n_tab]:.4f}", flush=True)
+        cases[n_tab] = case
     ns_best = min(K4_SPLITS, key=lambda n: times[n])
+    for shape in K4_SMALL:
+        b, t, page, hkv_s, g, dk, dv, dtype, ns = shape
+        case = k4_small_case(torch, gen, b, t, page, hkv_s, g, dk, dv,
+                             getattr(torch, dtype))
+        err, same = k4_hold(torch, kpa, case, ns, f"shape={shape}")
+        worst, exact = max(worst, err), exact and same
     print(f"K4 n_splits winner over caps {K4_CAPS}: {ns_best} (key "
           f"p{PAGE}_h{cfg.n_heads}_d{d}_r{SLOTS}); bitwise={exact} max "
-          f"|diff|/max(1,|plain|) {worst:.3e} (tolerance {K4_TOL})",
-          flush=True)
+          f"|diff|/max(1,|plain|) {worst:.3e} (tolerance {K4_TOL}) at caps "
+          f"{K4_CAPS} x n_splits {K4_SPLITS} and {len(K4_SMALL)} small "
+          "shapes; two calls equal", flush=True)
 
-    q, kpool, vpool, pt, lens = rec
+    # Each cap at the winner beside the library composition.
+    faster = True
+    for n_tab, case in cases.items():
+        ns = kpa._norm_splits(ns_best, n_tab, page_size=PAGE,
+                              heads=cfg.n_heads, head_dim=d)
+        t = time_ms(torch, lambda: kpa.paged_decode_attention(
+            *case, n_splits=ns), reps=50)
+        faster = faster and t < lib_by_cap[n_tab]
+        print(f"K4 cap={n_tab:2d} n_splits={ns} ms={t:.4f} library_ms="
+              f"{lib_by_cap[n_tab]:.4f} ({lib_by_cap[n_tab] / t:.2f}x)",
+              flush=True)
+
+    q, kpool, vpool, pt, lens = cases[8]   # the paged drain's usual cap
+    # One CUDA kernel per call, as the profiler sees the device.
+    kpa.paged_decode_attention(q, kpool, vpool, pt, lens, n_splits=ns_best)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kpa.paged_decode_attention(q, kpool, vpool, pt, lens,
+                                   n_splits=ns_best)
+        torch.cuda.synchronize()
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"K4 profiler: {len(on_device)} device launch(es) in one call: "
+          f"{on_device}", flush=True)
+    check(len(on_device) == 1, f"K4: {len(on_device)} device launches in "
+          f"one call (expected 1): {on_device}")
+
     ms = time_ms(torch, lambda: kpa.paged_decode_attention(
         q, kpool, vpool, pt, lens, n_splits=ns_best), reps=50)
     plain = time_ms(torch, lambda: kpa._combine(*kpa._gqa_plain(
         q, kpool, vpool, pt, lens, scale=1.0 / math.sqrt(d),
         n_splits=ns_best)),
         reps=10)
-    s_len = pt.shape[1] * PAGE
-    mask = (torch.arange(s_len, device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-
-    def library():
-        k = kpool[pt].reshape(SLOTS, s_len, hkv, d).transpose(1, 2)
-        v = vpool[pt].reshape(SLOTS, s_len, hkv, d).transpose(1, 2)
-        return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
-                                              enable_gqa=True)
-
-    lib = time_ms(torch, library, reps=50)
+    lib = time_ms(torch, library(cases[8]), reps=50)
     live = int(lens.sum().item())
     nbytes = (live * hkv * 2 * d * kpool.element_size() + q.numel() * 2
               + SLOTS * cfg.n_heads * d * 4 + pt.numel() * 4 + SLOTS * 4)
@@ -842,12 +935,15 @@ def phase_k4(torch, cfg, seed: int) -> dict:
                        BF16_FLOPS_PER_S)
     per = cfg.n_layers
     print(f"K4 cap=8 pages n_splits={ns_best} live_positions={live} "
-          f"KiB_live={nbytes / 1024:.1f} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"KiB_live={nbytes / 1024:.1f} ms={ms:.4f} "
+          f"(two-kernel design: {K4_TWO_KERNEL_MS}) "
+          f"plain_ms={plain:.4f} "
           f"library_ms(2 gathers + sdpa, 3 calls)={lib:.4f} "
           f"bound_ms={b_ms:.5f} ({b_by}) share_of_bound={b_ms / ms:.4f} "
           f"launches_per_decode_step={per}; per decode step ms="
           f"{per * ms:.4f} plain_ms={per * plain:.4f} "
-          f"library_ms={per * lib:.4f} bound_ms={per * b_ms:.5f}",
+          f"library_ms={per * lib:.4f} bound_ms={per * b_ms:.5f}; "
+          f"faster than the library at every cap: {faster}",
           flush=True)
     return {"name": f"K4 paged_decode_attention (one decode step: {per} "
                     "launches, 8-page cap)",

@@ -51,11 +51,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # pool, pt, out, entries, P, page_bytes, vec_bytes, stream
         "gather_pages": [_P] * 3 + [_I] * 2 + [_L, _I, _P]},
     "paged_attn_gqa": {
-        # q, kp, vp, pt, lengths, m, l, acc, out, B, H, Hkv, Dk, Dv, P,
-        # page, ts, S, pt_stride, scale, pool_bf16, stream
-        "paged_attn_gqa": [_P] * 9 + [_I] * 9 + [_L, _F, _I, _P],
-        # G, Dk, span -> bytes of shared memory
-        "paged_attn_gqa_smem": [_I] * 3},
+        # q, kp, vp, pt, lengths, out, B, H, Hkv, Dk, Dv, P, page, ts, S,
+        # ring, pt_stride, scale, pool_bf16, q_bf16, smem, stream
+        "paged_attn_gqa": [_P] * 6 + [_I] * 10 + [_L, _F] + [_I] * 3 + [_P]},
     "paged_attn_mla": {
         # q_lat, q_rope, cp, rp, pt, lengths, m, l, acc, out, B, H, C, R,
         # P, page, ts, S, pt_stride, scale, pool_bf16, stream

@@ -2,10 +2,12 @@
 
 Replaces the Pallas TPU kernel ``_gqa_kernel`` / ``_gqa_pallas`` and its
 ``_combine`` of ``repro.kernels.paged_attn``; the CUDA source is
-``csrc/paged_attn_gqa.cu``. The kernel walks each row's page table itself,
-one block per (split, kv-head, row), reads the live pages straight from
-the shared pool, and emits per-split online-softmax state (m, l, acc); a
-second kernel combines the splits:
+``csrc/paged_attn_gqa.cu``. One launch per call: one block per (split,
+kv-head, row) reads its slice of the row's page table, stages the live
+pages' K and V rows from the shared pool into shared memory with bulk
+copies, and computes its split's softmax state (m, l, acc) in two passes;
+the split blocks of a (kv-head, row) form one thread-block cluster and
+combine their states over distributed shared memory, in split order:
 
     m* = max_s m_s,   l* = sum_s l_s * exp(m_s - m*),
     out = sum_s acc_s * exp(m_s - m*) / max(l*, 1e-30).
@@ -20,8 +22,10 @@ Beside the kernel: its plain version (:func:`_gqa_plain` +
 :func:`_combine`), which mirrors the reference's ``_gqa_ref`` and
 ``_combine`` op for op (same split partition, same ``NEG``, explicit
 zeroing of masked lanes, ``max(l*, 1e-30)``), and a launch counter,
-``paged_decode_attention.launches`` (one per call; each call runs the
-split kernel and the combine).
+``paged_decode_attention.launches`` (one per call). :func:`k4_plan` sizes
+the launch (cluster, ring depth, shared memory) and
+:func:`k4_ring_schedule` spells out the order in which a block stages its
+split's pages.
 
 Every sum (the score dot products, ``l``, ``p @ V`` and the combine's
 sums over splits) is accumulated in float64 from exact products of
@@ -47,7 +51,7 @@ counter is ``paged_decode_mla.launches``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -130,9 +134,84 @@ def _combine(m: Tensor, l: Tensor, acc: Tensor) -> Tensor:
     return acc_star / torch.clamp_min(l_star, _EPS)[..., None]
 
 
+class K4Plan(NamedTuple):
+    """How K4 launches for one call: ``cluster`` blocks per cluster (the
+    split count: the splits of a (kv-head, row) are reduced inside their
+    cluster, so one launch does the whole call), ``ring`` page slots of K
+    and of V per block, ``smem`` bytes of dynamic shared memory a block."""
+    cluster: int
+    ring: int
+    smem: int
+
+
+K4_MAX_CLUSTER = 8    # the portable cluster size
+K4_RING_MAX = 8       # page slots in flight per block, for K and for V
+K4_MAX_G = 16
+K4_MAX_DIM = 256
+
+
+def _k4_smem(g: int, dk: int, dv: int, page: int, ts: int, n_splits: int,
+             ring: int, itemsize: int) -> int:
+    """Bytes of K4's shared-memory layout (``layout`` in
+    csrc/paged_attn_gqa.cu; the entry point rejects a size it disagrees
+    with): mbarriers, page ids, q as double, the split's G x ts*page
+    scores (float) and p (double), the second row group's sums of pass 2,
+    the inbox of every split's (m, l, acc) for the block's share of the
+    outputs, and the K and V rings; K rows are padded to whole 16-byte
+    vectors of pool elements, q to whole chunks of eight such vectors."""
+    def a16(n: int) -> int:
+        return -(-n // 16) * 16
+    vec = 16 // itemsize
+    dkp = -(-dk // vec) * vec
+    q_dims = -(-dk // (8 * vec)) * 8 * vec   # q in whole chunks of 8 vectors
+    span, per = ts * page, -(-(g * dv) // n_splits)
+    return (a16(16 * ring) + a16(4 * ts) + a16(8 * g * q_dims)
+            + a16(4 * g * span) + a16(8 * g * span) + a16(8 * g * dv)
+            + 2 * a16(4 * n_splits * g) + a16(4 * n_splits * per)
+            + ring * (a16(page * dkp * itemsize) + a16(page * dv * itemsize)))
+
+
+def k4_plan(g: int, dk: int, dv: int, page: int, ts: int, n_splits: int,
+            itemsize: int) -> K4Plan:
+    """K4's launch plan for G query heads per kv-head, head dims Dk/Dv,
+    ``ts`` pages per split, ``n_splits`` splits and pools of ``itemsize``
+    bytes: the deepest ring up to ``K4_RING_MAX`` pages (never more than
+    a split holds) that fits beside the scores. Raises ValueError for what
+    the kernel cannot hold."""
+    if g < 1 or g > K4_MAX_G or min(dk, dv) < 1 or max(dk, dv) > K4_MAX_DIM:
+        raise ValueError(f"K4 takes G = H/Hkv <= {K4_MAX_G} and head dims "
+                         f"<= {K4_MAX_DIM}; got G={g} Dk={dk} Dv={dv}")
+    if not 1 <= n_splits <= K4_MAX_CLUSTER:
+        raise ValueError(f"K4 reduces a row's splits inside one cluster of "
+                         f"at most {K4_MAX_CLUSTER} blocks; got "
+                         f"n_splits={n_splits}")
+    ring = min(ts, K4_RING_MAX)
+    while ring > 1 and _k4_smem(g, dk, dv, page, ts, n_splits, ring,
+                                itemsize) > _MAX_SMEM:
+        ring -= 1
+    smem = _k4_smem(g, dk, dv, page, ts, n_splits, ring, itemsize)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"a split of {ts * page} positions needs {smem} "
+                         "bytes of shared memory; raise n_splits")
+    return K4Plan(n_splits, ring, smem)
+
+
+def k4_ring_schedule(live: int, page: int, ring: int):
+    """The copies a K4 block makes for a split of ``live`` positions, in
+    issue order (the same for its K ring and its V ring): tuples (page,
+    slot, parity, rows, after). Page i goes to slot i % ring with mbarrier
+    parity (i // ring) & 1; the first ``ring`` pages are issued at block
+    start (after = -1), page i >= ring once every warp is done with page
+    i - ring (after = i - ring). Only the ``rows`` live positions of a page
+    are copied."""
+    n = -(-live // page)
+    return [(i, i % ring, (i // ring) & 1, min(page, live - i * page),
+             -1 if i < ring else i - ring) for i in range(n)]
+
+
 def _gqa_kernel(q: Tensor, k_pool: Tensor, v_pool: Tensor, pt: Tensor,
                 lengths: Tensor, *, scale: float, n_splits: int) -> Tensor:
-    """Launch K4 (split kernel + combine) on CUDA tensors."""
+    """Launch K4 on CUDA tensors: one launch per call."""
     dev = q.device
     if not all(t.is_cuda and t.device == dev
                for t in (k_pool, v_pool, pt, lengths)):
@@ -149,26 +228,22 @@ def _gqa_kernel(q: Tensor, k_pool: Tensor, v_pool: Tensor, pt: Tensor,
     b, h, dk = q.shape
     p, page, hkv, _ = k_pool.shape
     dv = v_pool.shape[-1]
-    if h % hkv or h // hkv > 16 or max(dk, dv) > 256:
-        raise ValueError(f"K4 takes G = H/Hkv <= 16 and head dims <= 256; "
-                         f"got H={h} Hkv={hkv} Dk={dk} Dv={dv}")
-    lib = _build.load("paged_attn_gqa")
+    if h % hkv:
+        raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
     ts = pt.shape[1] // n_splits
-    smem = lib.paged_attn_gqa_smem(h // hkv, dk, ts * page)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"a split of {ts * page} positions needs {smem} "
-                         "bytes of shared memory; raise n_splits")
-    qf = q.to(torch.float32).contiguous()
-    m = torch.empty((b, n_splits, h), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    acc = torch.empty((b, n_splits, h, dv), dtype=torch.float32, device=dev)
+    plan = k4_plan(h // hkv, dk, dv, page, ts, n_splits,
+                   k_pool.element_size())
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        q = q.to(torch.float32)
+    q = q.contiguous()
+    lib = _build.load("paged_attn_gqa")
     out = torch.empty((b, h, dv), dtype=torch.float32, device=dev)
     err = lib.paged_attn_gqa(
-        qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
-        lengths.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), b, h, hkv, dk, dv, p, page, ts, n_splits,
-        pt.stride(0), scale, int(k_pool.dtype == torch.bfloat16),
-        _build.stream_ptr())
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), b, h, hkv, dk, dv, p, page, ts,
+        plan.cluster, plan.ring, pt.stride(0), scale,
+        int(k_pool.dtype == torch.bfloat16), int(q.dtype == torch.bfloat16),
+        plan.smem, _build.stream_ptr())
     _build.check(err, "paged_attn_gqa")
     paged_decode_attention.launches += 1
     return out

@@ -128,3 +128,79 @@ def test_split_count_lookup_and_normalization():
         autotune._persisted = saved
     # The committed record parses and holds positive split counts.
     assert all(v >= 1 for v in autotune._load_persisted().values())
+
+
+# K4's launch plan (``k4_plan``) and ring order (``k4_ring_schedule``): the
+# card runs what these describe; chip_smoke.py holds the kernel itself.
+QWEN3_DECODE = (2, 128, 128, 16, "bfloat16")  # G, Dk, Dv, page, pool
+PLAN_SHAPES = [QWEN3_DECODE] + [(c[4], c[5], c[6], c[2], c[7])
+                                for c in GQA_CASES]
+ITEMSIZE = {"float32": 4, "bfloat16": 2}
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_k4_plan_is_one_launch_for_every_split_count(shape):
+    """At caps 1, 8 and 32 and every n_splits the smoke takes, the splits
+    of a (kv-head, row) form one cluster (so one launch reduces them) and
+    the ring holds every page of a split up to K4_RING_MAX."""
+    g, dk, dv, page, dtype = shape
+    for cap in (1, 8, 32):
+        for n in (1, 2, 4, 8):
+            ns = kpa._norm_splits(n, cap, page_size=page, heads=g,
+                                  head_dim=dk)
+            ts = cap // ns
+            plan = kpa.k4_plan(g, dk, dv, page, ts, ns, ITEMSIZE[dtype])
+            assert plan.cluster == ns <= kpa.K4_MAX_CLUSTER
+            assert plan.ring == min(ts, kpa.K4_RING_MAX), (cap, n, plan)
+            assert plan.smem == kpa._k4_smem(g, dk, dv, page, ts, ns,
+                                             plan.ring, ITEMSIZE[dtype])
+            assert plan.smem <= kpa._MAX_SMEM
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("g,dk,dv", [(2, 128, 128), (16, 256, 256),
+                                     (4, 32, 16)])
+def test_k4_plan_fits_shared_memory_up_to_the_engine_extent(itemsize, g, dk,
+                                                            dv):
+    """bf16 and f32 pools up to max_len 512 at page 16 (32 pages): every
+    split count fits the 227 KB a block can use; the ring is cut only where
+    the widest heads would not fit, never below one page."""
+    for ns in (1, 2, 4, 8):
+        ts = 32 // ns
+        plan = kpa.k4_plan(g, dk, dv, 16, ts, ns, itemsize)
+        assert plan.smem <= 227 * 1024
+        assert 1 <= plan.ring <= min(ts, kpa.K4_RING_MAX)
+        if plan.ring < min(ts, kpa.K4_RING_MAX):
+            assert kpa._k4_smem(g, dk, dv, 16, ts, ns, plan.ring + 1,
+                                itemsize) > kpa._MAX_SMEM
+
+
+@pytest.mark.parametrize("args,what", [
+    ((2, 128, 128, 16, 2, 16, 2), "cluster"),     # 16 splits
+    ((2, 128, 128, 16, 4, 9, 2), "cluster"),      # 9 splits
+    ((17, 128, 128, 16, 4, 1, 2), "G = H/Hkv"),
+    ((2, 512, 128, 16, 4, 1, 2), "head dims"),
+    ((16, 256, 256, 16, 4096, 1, 4), "raise n_splits"),   # 65536 scores
+])
+def test_k4_plan_raises_past_its_limits(args, what):
+    with pytest.raises(ValueError, match=what):
+        kpa.k4_plan(*args)
+
+
+@pytest.mark.parametrize("ring", [1, 3, 8])
+@pytest.mark.parametrize("live", [0, 1, 15, 16, 17, 100, 512])
+def test_k4_ring_covers_each_live_page_once_in_order(live, ring):
+    """Page i of the split goes to slot i % ring at parity (i // ring) & 1,
+    exactly once and in order; the first ``ring`` pages are issued at block
+    start, a later one only after page i - ring (the slot's last occupant)
+    is consumed; only live rows are copied."""
+    page = 16
+    sched = kpa.k4_ring_schedule(live, page, ring)
+    n = -(-live // page)
+    assert [c[0] for c in sched] == list(range(n))
+    assert sum(c[3] for c in sched) == live
+    for i, slot, parity, rows, after in sched:
+        assert slot == i % ring and parity == (i // ring) & 1
+        assert 1 <= rows <= page and (rows == page or i == n - 1)
+        assert after == (-1 if i < ring else i - ring)
+    assert sum(c[4] == -1 for c in sched) == min(n, ring)
