@@ -95,11 +95,21 @@ on any fault:
              16-token pages), tables of 1, 8 and 32 pages with ragged
              lengths (0 included) and trash entries: within 1e-6 of the
              plain version at n_splits 1, 2, 4 and 8 (bitwise expected:
-             both sum in float64); the n_splits that is fastest over the
-             three caps, kernel, plain and library (two gathers and
-             ``scaled_dot_product_attention``) times and the bound of the
-             live latent bytes and the f32 flops. K6 is also held bitwise
-             on the MLA pools.
+             both sum in float64), and at the CPU tests' small shapes (H =
+             1, f32 pools, latents down to 8), one whose rope rows are not
+             16-byte multiples, one whose H = 20 is not a multiple of the
+             16 heads a block and one with an odd latent width; two calls
+             bitwise equal; bitwise
+             neutral to a covering table prefix at one split; one device
+             launch per call, as ``torch.profiler`` counts it; the
+             n_splits that is fastest over the three caps, kernel, plain
+             and library (the gathers and one
+             ``scaled_dot_product_attention`` with the H heads as query
+             rows against one kv head) times at every cap and the bound of
+             the live latent bytes and the f32 flops; information only,
+             the earlier library composition (``enable_gqa=True``, the kv
+             head expanded H-fold). K6 is also held bitwise on the MLA
+             pools.
 11. train  — the same model and mode, remat="full", AdamW: run_loop for 3
              steps of batch 4 x 256 from DataPipeline(kind="lm"), with a
              final checkpoint in a temporary directory. Per step: loss,
@@ -1473,8 +1483,76 @@ def k5_case(torch, cfg, gen, n_tab: int):
     return q_lat, q_rope, cpool, rpool, pt, lens
 
 
+def k5_small_case(torch, gen, b, t, page, h, c, r, dtype):
+    """tests/test_torch_mla.py's construction on the card: f32 q_lat, bf16
+    q_rope, a random permutation of page ids, trash entries past each
+    row's extent, a length-0 row and a single-page row."""
+    n_pages = b * t + 2
+    q_lat = torch.randn(b, h, c, generator=gen, device="cuda")
+    q_rope = torch.randn(b, h, r, generator=gen, device="cuda").bfloat16()
+    cpool = torch.randn(n_pages, page, c, generator=gen,
+                        device="cuda").to(dtype)
+    rpool = torch.randn(n_pages, page, r, generator=gen,
+                        device="cuda").to(dtype)
+    lens = torch.randint(0, t * page + 1, (b,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    lens[0] = 0
+    if b > 1:
+        lens[1] = min(page, t * page)
+    ids = torch.randperm(n_pages - 1, generator=gen, device="cuda")[:b * t]
+    pt = (ids + 1).to(torch.int32).reshape(b, t)
+    live = (lens.to(torch.int64) + page - 1) // page
+    pt[torch.arange(t, device="cuda")[None, :] >= live[:, None]] = 0
+    return q_lat, q_rope, cpool, rpool, pt, lens
+
+
+def k5_hold(torch, kpa, ops, scale: float, ns: int,
+            what: str) -> tuple[float, bool]:
+    """K5 against its plain version (gate K5_TOL of max(1, |plain|),
+    finite, length-0 rows exactly 0) and bitwise equal on two calls.
+    Returns (relative error, bitwise)."""
+    q_lat, q_rope, cpool, rpool, pt, lens = ops
+    got = kpa.paged_decode_mla(*ops, scale=scale, n_splits=ns)
+    again = kpa.paged_decode_mla(*ops, scale=scale, n_splits=ns)
+    want = kpa._combine(*kpa._mla_plain(
+        *ops, scale=scale, n_splits=kpa._norm_splits(
+            ns, pt.shape[1], page_size=cpool.shape[1], heads=q_lat.shape[1],
+            head_dim=q_lat.shape[2] + q_rope.shape[2])))
+    torch.cuda.synchronize()
+    err = ((got - want).abs().max()
+           / want.abs().max().clamp_min(1.0)).item()
+    check(err <= K5_TOL and bool(torch.isfinite(got).all())
+          and bool((got[lens == 0] == 0).all()),
+          f"K5 {what} n_splits={ns}: max rel {err} > {K5_TOL} or a "
+          "length-0 row not exactly 0")
+    check(torch.equal(got, again), f"K5 {what} n_splits={ns}: two calls "
+          "differ")
+    return err, torch.equal(got, want)
+
+
+# tests/test_torch_mla.py's MLA_CASES (b, t, page, h, c, r, pool dtype,
+# n_splits), then one whose 8-byte rope rows are not 16-byte multiples (the
+# kernel stages those with loads, not cp.async), one whose H = 20 is not a
+# multiple of the 16 heads a block, and one with an odd latent width (q
+# loaded element by element, outputs stored singly).
+K5_SMALL = ((2, 4, 8, 4, 32, 16, "float32", 2),
+            (3, 2, 16, 1, 64, 16, "bfloat16", 1),
+            (2, 8, 4, 8, 16, 8, "bfloat16", 8),
+            (1, 1, 4, 2, 8, 8, "float32", 1),
+            (4, 4, 8, 16, 32, 16, "bfloat16", 4),
+            (3, 4, 8, 1, 32, 8, "float32", 2),
+            (2, 2, 16, 4, 16, 16, "bfloat16", 2),
+            (2, 4, 8, 3, 24, 4, "bfloat16", 2),
+            (3, 4, 16, 20, 64, 16, "bfloat16", 4),
+            (2, 4, 8, 3, 15, 8, "float32", 2))
+# The earlier two-kernel K5 (split kernel + combine kernel) at the 8-page
+# cap, per launch, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
+K5_TWO_KERNEL_MS = "0.0730-0.0736"
+
+
 def phase_k5(torch, cfg, seed: int) -> dict:
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import paged as kp
     from repro_torch.kernels import paged_attn as kpa
@@ -1484,24 +1562,35 @@ def phase_k5(torch, cfg, seed: int) -> dict:
     h, c, r = cfg.n_heads, m.kv_lora_rank, m.qk_rope_head_dim
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     times = {ns: 0.0 for ns in K4_SPLITS}
-    worst, exact, rec = 0.0, True, None
+    worst, exact, cases, lib_by_cap = 0.0, True, {}, {}
+
+    def library(ops, gqa: bool = False):
+        """The same gathers, then one scaled_dot_product_attention: the H
+        heads as query rows against one kv head (q (B,1,H,C+R), k
+        (B,1,J,C+R), v = c_kv (B,1,J,C), a (B,1,1,J) length mask). With
+        ``gqa`` the earlier composition instead: H heads of one query row
+        with ``enable_gqa=True``, which expands the kv head H-fold."""
+        q_lat, q_rope, cpool, rpool, pt, lens = ops
+        s_len = pt.shape[1] * PAGE
+        mask = (torch.arange(s_len, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        q = torch.cat([q_lat, q_rope.float()], dim=-1)
+        q = q[:, :, None, :] if gqa else q[:, None]
+
+        def run():
+            ck = cpool[pt].reshape(SLOTS, 1, s_len, c).float()
+            kr = rpool[pt].reshape(SLOTS, 1, s_len, r).float()
+            return F.scaled_dot_product_attention(
+                q, torch.cat([ck, kr], dim=-1), ck, attn_mask=mask,
+                scale=scale, enable_gqa=gqa)
+        return run
+
     for n_tab in K4_CAPS:
         ops = k5_case(torch, cfg, gen, n_tab)
         lens = ops[-1]
         for ns in K4_SPLITS:
-            got = kpa.paged_decode_mla(*ops, scale=scale, n_splits=ns)
-            want = kpa._combine(*kpa._mla_plain(
-                *ops, scale=scale, n_splits=kpa._norm_splits(
-                    ns, n_tab, page_size=PAGE, heads=h, head_dim=c + r)))
-            torch.cuda.synchronize()
-            err = ((got - want).abs().max()
-                   / want.abs().max().clamp_min(1.0)).item()
-            worst = max(worst, err)
-            exact = exact and torch.equal(got, want)
-            check(err <= K5_TOL and bool(torch.isfinite(got).all())
-                  and bool((got[lens == 0] == 0).all()),
-                  f"K5 cap={n_tab} n_splits={ns}: max rel {err} > {K5_TOL}"
-                  " or a length-0 row not exactly 0")
+            err, same = k5_hold(torch, kpa, ops, scale, ns, f"cap={n_tab}")
+            worst, exact = max(worst, err), exact and same
         if n_tab == 32:  # a covering prefix is neutral at one split
             short = lens.clamp_max(8 * PAGE)
             full = kpa.paged_decode_mla(*ops[:5], short, scale=scale,
@@ -1522,34 +1611,64 @@ def phase_k5(torch, cfg, seed: int) -> dict:
                 *ops, scale=scale, n_splits=ns), reps=50)
             times[ns] += t
             row.append(f"{ns}:{t:.4f}")
+        lib_by_cap[n_tab] = time_ms(torch, library(ops), reps=50)
         print(f"K5 cap={n_tab:2d} pages lengths={lens.tolist()} ms by "
-              f"n_splits {' '.join(row)}", flush=True)
-        if n_tab == 8:
-            rec = ops
+              f"n_splits {' '.join(row)}; library_ms(gathers + one sdpa, "
+              f"heads as query rows)={lib_by_cap[n_tab]:.4f}", flush=True)
+        cases[n_tab] = ops
     ns_best = min(K4_SPLITS, key=lambda n: times[n])
+    for shape in K5_SMALL:
+        b, t, page, hs, cs, rs, dtype, ns = shape
+        ops = k5_small_case(torch, gen, b, t, page, hs, cs, rs,
+                            getattr(torch, dtype))
+        err, same = k5_hold(torch, kpa, ops, 1.0 / math.sqrt(cs // 2 + rs),
+                            ns, f"shape={shape}")
+        worst, exact = max(worst, err), exact and same
     print(f"K5 n_splits winner over caps {K4_CAPS}: {ns_best} (key "
           f"p{PAGE}_h{h}_d{c + r}_r{SLOTS}); bitwise={exact} max "
-          f"|diff|/max(1,|plain|) {worst:.3e} (tolerance {K5_TOL}); K6 "
-          f"bitwise on the MLA pools", flush=True)
+          f"|diff|/max(1,|plain|) {worst:.3e} (tolerance {K5_TOL}) at caps "
+          f"{K4_CAPS} x n_splits {K4_SPLITS} and {len(K5_SMALL)} small "
+          "shapes; two calls equal; K6 bitwise on the MLA pools",
+          flush=True)
 
+    # Each cap at the winner beside the library call.
+    faster = True
+    for n_tab, ops in cases.items():
+        ns = kpa._norm_splits(ns_best, n_tab, page_size=PAGE, heads=h,
+                              head_dim=c + r)
+        t = time_ms(torch, lambda: kpa.paged_decode_mla(
+            *ops, scale=scale, n_splits=ns), reps=50)
+        faster = faster and t < lib_by_cap[n_tab]
+        print(f"K5 cap={n_tab:2d} n_splits={ns} ms={t:.4f} library_ms="
+              f"{lib_by_cap[n_tab]:.4f} ({lib_by_cap[n_tab] / t:.2f}x)",
+              flush=True)
+
+    rec = cases[8]   # the paged drain's usual cap
     q_lat, q_rope, cpool, rpool, pt, lens = rec
+    # One CUDA kernel per call, as the profiler sees the device.
+    kpa.paged_decode_mla(*rec, scale=scale, n_splits=ns_best)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kpa.paged_decode_mla(*rec, scale=scale, n_splits=ns_best)
+        torch.cuda.synchronize()
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"K5 profiler: {len(on_device)} device launch(es) in one call: "
+          f"{on_device}", flush=True)
+    check(len(on_device) == 1, f"K5: {len(on_device)} device launches in "
+          f"one call (expected 1): {on_device}")
+
     ms = time_ms(torch, lambda: kpa.paged_decode_mla(
         *rec, scale=scale, n_splits=ns_best), reps=50)
     plain = time_ms(torch, lambda: kpa._combine(*kpa._mla_plain(
         *rec, scale=scale, n_splits=ns_best)), reps=10)
-    s_len = pt.shape[1] * PAGE
-    mask = (torch.arange(s_len, device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
-    q = torch.cat([q_lat, q_rope.float()], dim=-1)[:, :, None, :]
-
-    def library():
-        ck = cpool[pt].reshape(SLOTS, 1, s_len, c).float()
-        kr = rpool[pt].reshape(SLOTS, 1, s_len, r).float()
-        return F.scaled_dot_product_attention(
-            q, torch.cat([ck, kr], dim=-1), ck, attn_mask=mask, scale=scale,
-            enable_gqa=True)
-
-    lib = time_ms(torch, library, reps=50)
+    lib = time_ms(torch, library(rec), reps=50)
+    lib_gqa = time_ms(torch, library(rec, gqa=True), reps=20)
+    # The library call computes the same function: held on the live rows.
+    want = kpa._combine(*kpa._mla_plain(*rec, scale=scale,
+                                        n_splits=ns_best))
+    got = library(rec)()[:, 0]
+    lib_err = (got - want)[lens > 0].abs().max().item()
     live = int(lens.sum().item())
     nbytes = (live * (c + r) * cpool.element_size() + q_lat.numel() * 4
               + q_rope.numel() * 2 + SLOTS * h * c * 4 + pt.numel() * 4
@@ -1558,13 +1677,18 @@ def phase_k5(torch, cfg, seed: int) -> dict:
                        F32_FLOPS_PER_S)
     per = cfg.n_layers
     print(f"K5 cap=8 pages n_splits={ns_best} live_positions={live} "
-          f"KiB_moved={nbytes / 1024:.1f} ms={ms:.4f} plain_ms={plain:.4f} "
-          f"library_ms(2 gathers + sdpa)={lib:.4f} bound_ms={b_ms:.5f} "
-          f"({b_by}) share_of_bound={b_ms / ms:.4f} "
-          f"launches_per_decode_step={per}; per decode step ms="
-          f"{per * ms:.4f} plain_ms={per * plain:.4f} "
-          f"library_ms={per * lib:.4f} bound_ms={per * b_ms:.5f}",
-          flush=True)
+          f"KiB_moved={nbytes / 1024:.1f} ms={ms:.4f} (two-kernel design: "
+          f"{K5_TWO_KERNEL_MS}) plain_ms={plain:.4f} library_ms(gathers + "
+          f"one sdpa, heads as query rows; max |diff| to plain "
+          f"{lib_err:.2e})={lib:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+          f"share_of_bound={b_ms / ms:.4f} launches_per_decode_step={per}; "
+          f"per decode step ms={per * ms:.4f} plain_ms={per * plain:.4f} "
+          f"library_ms={per * lib:.4f} bound_ms={per * b_ms:.5f}; faster "
+          f"than the library at every cap: {faster}", flush=True)
+    print(f"K5 information only: the earlier library composition (one "
+          f"query row of H heads, enable_gqa=True, the kv head expanded "
+          f"{h}-fold) library_ms={lib_gqa:.4f}, per decode step "
+          f"{per * lib_gqa:.4f}", flush=True)
     return {"name": f"K5 paged_decode_mla (one decode step: {per} "
                     "launches, 8-page cap)",
             "route": "cuda", "source": "src/repro_torch/csrc/paged_attn_mla.cu",

@@ -55,11 +55,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # ring, pt_stride, scale, pool_bf16, q_bf16, smem, stream
         "paged_attn_gqa": [_P] * 6 + [_I] * 10 + [_L, _F] + [_I] * 3 + [_P]},
     "paged_attn_mla": {
-        # q_lat, q_rope, cp, rp, pt, lengths, m, l, acc, out, B, H, C, R,
-        # P, page, ts, S, pt_stride, scale, pool_bf16, stream
-        "paged_attn_mla": [_P] * 10 + [_I] * 8 + [_L, _F, _I, _P],
-        # C, R, span -> bytes of shared memory
-        "paged_attn_mla_smem": [_I] * 3},
+        # q_lat, q_rope, cp, rp, pt, lengths, out, B, H, HG, C, R, P, page,
+        # ts, S, ring, pt_stride, q_lat batch and head strides, q_rope's,
+        # scale, pool_bf16, ql_bf16, qr_bf16, smem, stream
+        "paged_attn_mla": ([_P] * 7 + [_I] * 10 + [_L] * 5 + [_F]
+                           + [_I] * 4 + [_P])},
 }
 SOURCES = tuple(SIGNATURES)  # every csrc/<name>.cu, built together
 

@@ -42,11 +42,17 @@ K5, the absorbed-MLA entry point (:func:`paged_decode_mla`, CUDA source
 ``csrc/paged_attn_mla.cu``), replaces ``_mla_kernel`` / ``_mla_pallas``:
 latent and rope queries against the ``(P, page, C)`` / ``(P, page, R)``
 pools, scores ``(q_lat·c_kv + q_rope·k_rope)·scale``, values the c_kv
-latents. Its plain version (:func:`_mla_plain`, through
-:func:`_attend_block_mla`) runs the reference's single-group MQA over the
-concatenated C+R features through the GQA block above, and shares
-:func:`_combine`; the same float64 accumulation holds in both, and its
-counter is ``paged_decode_mla.launches``.
+latents. Like K4 it is one launch per call: the split blocks of a (group
+of up to 16 heads, row) form one cluster, stage the live latent and rope
+rows once through a ring of page slots, and combine their states in split
+order over distributed shared memory; :func:`k5_plan` sizes the launch
+(heads a block, cluster, ring, shared memory) and
+:func:`k5_ring_schedule` spells out the stagings. Its plain version
+(:func:`_mla_plain`, through :func:`_attend_block_mla`) runs the
+reference's single-group MQA over the concatenated C+R features through
+the GQA block above, and shares :func:`_combine`; the same float64
+accumulation holds in both, and its counter is
+``paged_decode_mla.launches`` (one per call).
 """
 from __future__ import annotations
 
@@ -318,10 +324,105 @@ def _mla_plain(q_lat: Tensor, q_rope: Tensor, ckv_pool: Tensor,
     return torch.stack(ms, 1), torch.stack(ls, 1), torch.stack(accs, 1)
 
 
+class K5Plan(NamedTuple):
+    """How K5 launches for one call: ``heads_per_block`` query heads a
+    block (HG; the grid is (S, ceil(H/HG), B)), ``cluster`` blocks per
+    cluster (the split count: a (head group, row)'s splits are reduced
+    inside their cluster, so one launch does the whole call), ``ring`` page
+    slots per block, ``smem`` bytes of dynamic shared memory a block."""
+    heads_per_block: int
+    cluster: int
+    ring: int
+    smem: int
+
+
+K5_MAX_CLUSTER = 8    # the portable cluster size
+K5_RING_MAX = 8       # page slots per block
+K5_MAX_HG = 16        # query heads a block
+K5_MAX_C = 512        # latent width
+K5_MAX_R = 128        # rope width
+_K5_WARPS, _K5_ROWS = 8, 16   # kWarps, kRows of csrc/paged_attn_mla.cu
+
+
+def _k5_smem(hg: int, c: int, r: int, page: int, ts: int, n_splits: int,
+             ring: int, itemsize: int) -> int:
+    """Bytes of K5's shared-memory layout (``layout`` in
+    csrc/paged_attn_mla.cu; the entry point rejects a size it disagrees
+    with): the slots' mbarriers, page ids, q as double, the split's
+    scores and then p (as double, ``maxg + 2`` a position), pass 1's sums
+    over warps, the inbox of every split's (m, l, acc) for the block's share
+    of the outputs, and the ring. A staged row holds the latent and then the
+    rope, each padded to whole 16-byte vectors of pool elements, and one
+    vector more."""
+    def a16(n: int) -> int:
+        return -(-n // 16) * 16
+
+    def up(n: int, m: int) -> int:
+        return -(-n // m) * m
+    vec = 16 // itemsize
+    d2 = up(c, vec) + up(r, vec)
+    maxg = 4 if hg <= 4 else (8 if hg <= 8 else K5_MAX_HG)
+    per = -(-(hg * c) // n_splits)
+    return (a16(8 * ring) + a16(4 * ts) + a16(8 * hg * d2)
+            + a16(8 * ts * page * (maxg + 2))
+            + a16(8 * _K5_WARPS * maxg * _K5_ROWS)
+            + 2 * a16(4 * n_splits * hg) + a16(4 * n_splits * per)
+            + ring * a16(page * (d2 + vec) * itemsize))
+
+
+def k5_plan(h: int, c: int, r: int, page: int, ts: int, n_splits: int,
+            itemsize: int) -> K5Plan:
+    """K5's launch plan for H query heads, latent width C, rope width R,
+    ``ts`` pages per split, ``n_splits`` splits and pools of ``itemsize``
+    bytes: the most heads a block (up to ``K5_MAX_HG``, halved until the
+    layout fits), then the deepest ring up to ``K5_RING_MAX`` pages (never
+    more than a split holds) that fits beside them. A split longer than its
+    ring stages its latents twice (``k5_ring_schedule``). Raises ValueError
+    for what the kernel cannot hold."""
+    if h < 1 or not 1 <= c <= K5_MAX_C or not 0 <= r <= K5_MAX_R:
+        raise ValueError(f"K5 takes H >= 1, C <= {K5_MAX_C} and R <= "
+                         f"{K5_MAX_R}; got H={h} C={c} R={r}")
+    if not 1 <= n_splits <= K5_MAX_CLUSTER:
+        raise ValueError(f"K5 reduces a row's splits inside one cluster of "
+                         f"at most {K5_MAX_CLUSTER} blocks; got "
+                         f"n_splits={n_splits}")
+    if page < 1 or ts < 1:
+        raise ValueError(f"page={page} and ts={ts} must be >= 1")
+    hg = min(h, K5_MAX_HG)
+    while hg > 1 and _k5_smem(hg, c, r, page, ts, n_splits, 1,
+                              itemsize) > _MAX_SMEM:
+        hg = -(-hg // 2)
+    ring = min(ts, K5_RING_MAX)
+    while ring > 1 and _k5_smem(hg, c, r, page, ts, n_splits, ring,
+                                itemsize) > _MAX_SMEM:
+        ring -= 1
+    smem = _k5_smem(hg, c, r, page, ts, n_splits, ring, itemsize)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"a split of {ts * page} positions needs {smem} "
+                         "bytes of shared memory; raise n_splits")
+    return K5Plan(hg, n_splits, ring, smem)
+
+
+def k5_ring_schedule(live: int, page: int, ring: int):
+    """The stagings a K5 block makes for a split of ``live`` positions, in
+    issue order: tuples (page, slot, parity, rows, after, rope). Pass 1
+    takes K4's order (:func:`k4_ring_schedule`) with the rope rows; when
+    the split has more pages than the ring, pass 2 walks the pages again
+    (latent rows only), staging k going to slot k % ring at parity
+    (k // ring) & 1 once staging k - ring is consumed. Otherwise pass 2
+    reads the pages where pass 1 left them."""
+    first = [c + (True,) for c in k4_ring_schedule(live, page, ring)]
+    n = len(first)
+    if n <= ring:
+        return first
+    return first + [(i, k % ring, (k // ring) & 1, rows, k - ring, False)
+                    for k, (i, _, _, rows, _, _) in enumerate(first, n)]
+
+
 def _mla_kernel(q_lat: Tensor, q_rope: Tensor, ckv_pool: Tensor,
                 kr_pool: Tensor, pt: Tensor, lengths: Tensor, *,
                 scale: float, n_splits: int) -> Tensor:
-    """Launch K5 (split kernel + combine) on CUDA tensors."""
+    """Launch K5 on CUDA tensors: one launch per call, no scratch."""
     dev = q_lat.device
     if not all(t.is_cuda and t.device == dev
                for t in (q_rope, ckv_pool, kr_pool, pt, lengths)):
@@ -339,26 +440,31 @@ def _mla_kernel(q_lat: Tensor, q_rope: Tensor, ckv_pool: Tensor,
     b, h, c = q_lat.shape
     r = q_rope.shape[-1]
     p, page = ckv_pool.shape[:2]
-    if c > 512 or r > 128:
-        raise ValueError(f"K5 takes C <= 512 and R <= 128; got C={c} R={r}")
-    lib = _build.load("paged_attn_mla")
+    if (q_rope.shape[:2] != (b, h) or kr_pool.shape[:2] != (p, page)
+            or ckv_pool.shape[2] != c or kr_pool.shape[2] != r):
+        raise ValueError("q_lat (B,H,C), q_rope (B,H,R) and the pools "
+                         "(P,page,C), (P,page,R) disagree")
     ts = pt.shape[1] // n_splits
-    smem = lib.paged_attn_mla_smem(c, r, ts * page)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"a split of {ts * page} positions needs {smem} "
-                         "bytes of shared memory; raise n_splits")
-    qlf = q_lat.to(torch.float32).contiguous()
-    qrf = q_rope.to(torch.float32).contiguous()
-    m = torch.empty((b, n_splits, h), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    acc = torch.empty((b, n_splits, h, c), dtype=torch.float32, device=dev)
+    plan = k5_plan(h, c, r, page, ts, n_splits, ckv_pool.element_size())
+    qs = []
+    for q in (q_lat, q_rope):
+        if q.dtype not in (torch.bfloat16, torch.float32):
+            q = q.to(torch.float32)
+        if q.stride(-1) != 1:
+            q = q.contiguous()
+        qs.append(q)
+    q_lat, q_rope = qs
+    lib = _build.load("paged_attn_mla")
     out = torch.empty((b, h, c), dtype=torch.float32, device=dev)
     err = lib.paged_attn_mla(
-        qlf.data_ptr(), qrf.data_ptr(), ckv_pool.data_ptr(),
-        kr_pool.data_ptr(), pt.data_ptr(), lengths.data_ptr(), m.data_ptr(),
-        l.data_ptr(), acc.data_ptr(), out.data_ptr(), b, h, c, r, p, page,
-        ts, n_splits, pt.stride(0), scale,
-        int(ckv_pool.dtype == torch.bfloat16), _build.stream_ptr())
+        q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
+        kr_pool.data_ptr(), pt.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, h, plan.heads_per_block, c, r, p, page, ts,
+        plan.cluster, plan.ring, pt.stride(0), q_lat.stride(0),
+        q_lat.stride(1), q_rope.stride(0), q_rope.stride(1), scale,
+        int(ckv_pool.dtype == torch.bfloat16),
+        int(q_lat.dtype == torch.bfloat16),
+        int(q_rope.dtype == torch.bfloat16), plan.smem, _build.stream_ptr())
     _build.check(err, "paged_attn_mla")
     paged_decode_mla.launches += 1
     return out

@@ -18,9 +18,8 @@ decode each) run with the profiler off and ``--steps`` more under
 - with the profiler on, wall ms per step;
 - device ms and kernel launches per step in all, the device's busy share
   of the wall time, and the shares of the hand kernels (K1, K3, and K4
-  or K5 on the paged engine: K4 is one kernel, K5 its split kernel and
-  its combine; K2 runs only in training, K6 only in prefill waves and
-  unfused decode);
+  or K5 on the paged engine, one kernel each; K2 runs only in training,
+  K6 only in prefill waves and unfused decode);
 - the top operators by the device time of the kernels they launch
   themselves, and the top kernels by name;
 - the elapsed ms (CUDA events) of prescaling and quantizing every weight

@@ -41,32 +41,52 @@ CLOCK_BLOCKS = 4096   # kClockBlocks in the .cu
 ROWS, HEADS, KV_HEADS, HEAD_DIM, PAGE = 4, 16, 8, 128, 16
 
 
-def build() -> ctypes.CDLL:
-    src = _build.CSRC / "paged_attn_gqa.cu"
+def build(name: str = "paged_attn_gqa",
+          flag: str = "-DK4_PHASE_CLOCKS") -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built a second time with ``flag`` into
+    ``build/repro_torch/<name>_clocks-<hash>.so``, its entry points typed
+    from ``_build.SIGNATURES`` and ``<name>_clocks`` beside them."""
+    src = _build.CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"paged_attn_gqa_clocks-{digest}.so"
+    out = _build.BUILD_DIR / f"{name}_clocks-{digest}.so"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
-                        "-DK4_PHASE_CLOCKS", "-o", str(out), str(src)],
-                       check=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, flag, "-o",
+                        str(out), str(src)], check=True)
     lib = ctypes.CDLL(str(out))
-    lib.paged_attn_gqa.restype = ctypes.c_int
-    lib.paged_attn_gqa.argtypes = _build.SIGNATURES["paged_attn_gqa"][
-        "paged_attn_gqa"]
-    lib.paged_attn_gqa_clocks.restype = ctypes.c_int
-    lib.paged_attn_gqa_clocks.argtypes = [ctypes.c_void_p]
+    for entry, argtypes in _build.SIGNATURES[name].items():
+        fn = getattr(lib, entry)
+        fn.restype, fn.argtypes = ctypes.c_int, argtypes
+    clocks = getattr(lib, f"{name}_clocks")
+    clocks.restype, clocks.argtypes = ctypes.c_int, [ctypes.c_void_p]
     return lib
+
+
+def device_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def phase_cycles(lib: ctypes.CDLL, name: str, blocks: int) -> str:
+    """The last launch's mean and largest SM cycles per block in each of
+    PHASES and in all, over its first ``blocks`` blocks."""
+    clocks = np.zeros((CLOCK_BLOCKS, 8), np.int64)
+    _build.check(getattr(lib, f"{name}_clocks")(clocks.ctypes.data),
+                 f"{name}_clocks")
+    d = np.diff(clocks[:blocks, :7], axis=1)
+    total = clocks[:blocks, 6] - clocks[:blocks, 0]
+    cells = " ".join(f"{ph}={d[:, i].mean():.0f}/{d[:, i].max()}"
+                     for i, ph in enumerate(PHASES))
+    return f"{cells} total={total.mean():.0f}/{total.max()}"
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_k4: needs a CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(f"device: {smi}", flush=True)
+    print(f"device: {device_line()}", flush=True)
     lib = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_pages = ROWS * 32 + 1
@@ -101,17 +121,11 @@ def main() -> int:
                       "instrumented kernel differs from the plain version",
                       file=sys.stderr)
                 return 1
-            clocks = np.zeros((CLOCK_BLOCKS, 8), np.int64)
-            _build.check(lib.paged_attn_gqa_clocks(clocks.ctypes.data),
-                         "paged_attn_gqa_clocks")
             blocks = ROWS * KV_HEADS * ns
-            d = np.diff(clocks[:blocks, :7], axis=1)
-            total = clocks[:blocks, 6] - clocks[:blocks, 0]
-            cells = " ".join(f"{name}={d[:, i].mean():.0f}/{d[:, i].max()}"
-                             for i, name in enumerate(PHASES))
             print(f"K4 cap={cap:2d} pages n_splits={ns} ring={plan.ring} "
-                  f"blocks={blocks} cycles per phase (mean/max): {cells} "
-                  f"total={total.mean():.0f}/{total.max()}", flush=True)
+                  f"blocks={blocks} cycles per phase (mean/max): "
+                  f"{phase_cycles(lib, 'paged_attn_gqa', blocks)}",
+                  flush=True)
     return 0
 
 

@@ -204,3 +204,99 @@ def test_k4_ring_covers_each_live_page_once_in_order(live, ring):
         assert 1 <= rows <= page and (rows == page or i == n - 1)
         assert after == (-1 if i < ring else i - ring)
     assert sum(c[4] == -1 for c in sched) == min(n, ring)
+
+
+# K5's launch plan (``k5_plan``) and stagings (``k5_ring_schedule``): the
+# card runs what these describe; chip_smoke.py holds the kernel itself.
+DEEPSEEK_MLA = (128, 512, 64)   # H, latent C, rope R of deepseek-v3
+K5_PLAN_SHAPES = [DEEPSEEK_MLA, (4, 32, 16), (1, 64, 16), (8, 16, 8),
+                  (2, 8, 8), (16, 32, 16), (1, 32, 8), (4, 16, 16),
+                  (6, 32, 16), (20, 64, 16)]   # tests/test_torch_mla.py's
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", K5_PLAN_SHAPES)
+def test_k5_plan_is_one_launch_for_every_split_count(shape, itemsize):
+    """At caps 1, 8 and 32 and every n_splits the smoke takes, the splits
+    of a (head group, row) form one cluster (so one launch reduces them),
+    the head groups cover H, and the layout fits the 227 KB a block can
+    use."""
+    h, c, r = shape
+    for cap in (1, 8, 32):
+        for n in (1, 2, 4, 8):
+            ns = kpa._norm_splits(n, cap, page_size=16, heads=h,
+                                  head_dim=c + r)
+            ts = cap // ns
+            plan = kpa.k5_plan(h, c, r, 16, ts, ns, itemsize)
+            assert plan.cluster == ns <= kpa.K5_MAX_CLUSTER
+            hg = plan.heads_per_block
+            assert 1 <= hg <= min(h, kpa.K5_MAX_HG)
+            assert -(-h // hg) * hg >= h > (-(-h // hg) - 1) * hg
+            assert 1 <= plan.ring <= min(ts, kpa.K5_RING_MAX), (cap, n, plan)
+            assert plan.smem == kpa._k5_smem(hg, c, r, 16, ts, ns,
+                                             plan.ring, itemsize)
+            assert plan.smem <= kpa._MAX_SMEM
+
+
+@pytest.mark.parametrize("h", [1, 6, 16, 20, 128])
+def test_k5_plan_head_groups_cover_h(h):
+    """A block takes min(H, 16) heads where they fit; H = 1 and H = 6 are
+    one group, H = 20 two (16 and 4), H = 128 eight."""
+    plan = kpa.k5_plan(h, 512, 64, 16, 1, 8, 2)
+    assert plan.heads_per_block == min(h, kpa.K5_MAX_HG)
+    assert -(-h // plan.heads_per_block) == {1: 1, 6: 1, 16: 1, 20: 2,
+                                              128: 8}[h]
+
+
+def test_k5_plan_fits_shared_memory_up_to_the_engine_extent():
+    """deepseek-v3's widths, bf16 pools of 16-token pages, every table
+    extent up to max_len 512 (T <= 32 pages) at every S <= 8 dividing T:
+    16 heads a block within 227 KB, the ring cut only where one more slot
+    would not fit, never below one page."""
+    h, c, r = DEEPSEEK_MLA
+    for t in range(1, 33):
+        for ns in (n for n in range(1, 9) if t % n == 0):
+            ts = t // ns
+            plan = kpa.k5_plan(h, c, r, 16, ts, ns, 2)
+            assert plan.heads_per_block == 16 and plan.cluster == ns
+            assert plan.smem <= 227 * 1024
+            assert 1 <= plan.ring <= min(ts, kpa.K5_RING_MAX)
+            if plan.ring < min(ts, kpa.K5_RING_MAX):
+                assert kpa._k5_smem(16, c, r, 16, ts, ns, plan.ring + 1,
+                                    2) > kpa._MAX_SMEM
+
+
+@pytest.mark.parametrize("args,what", [
+    ((128, 512, 64, 16, 2, 16, 2), "cluster"),      # 16 splits
+    ((128, 512, 64, 16, 4, 9, 2), "cluster"),       # 9 splits
+    ((128, 1024, 64, 16, 1, 8, 2), "C=1024"),       # latent too wide
+    ((128, 512, 256, 16, 1, 8, 2), "R=256"),        # rope too wide
+    ((128, 512, 64, 16, 4096, 1, 4), "raise n_splits"),   # 65536 positions
+    ((128, 512, 64, 1024, 1, 1, 4), "raise n_splits"),    # a 2.3 MB page
+])
+def test_k5_plan_raises_past_its_limits(args, what):
+    with pytest.raises(ValueError, match=what):
+        kpa.k5_plan(*args)
+
+
+@pytest.mark.parametrize("ring", [1, 3, 8])
+@pytest.mark.parametrize("live", [0, 1, 15, 16, 17, 100, 512])
+def test_k5_ring_stages_each_live_page_once_a_pass(live, ring):
+    """Pass 1 stages the split's pages in K4's order, with the rope rows;
+    pass 2 reads them where pass 1 left them while the ring holds the
+    split, and otherwise stages every page's latents once more, in order,
+    staging k in slot k % ring at parity (k // ring) & 1 once staging
+    k - ring is consumed."""
+    page = 16
+    sched = kpa.k5_ring_schedule(live, page, ring)
+    n = -(-live // page)
+    first = [c for c in sched if c[5]]
+    again = [c for c in sched if not c[5]]
+    assert [c[:5] for c in first] == kpa.k4_ring_schedule(live, page, ring)
+    assert sched == first + again
+    assert [c[0] for c in again] == (list(range(n)) if n > ring else [])
+    for k, (i, slot, parity, rows, after, _) in enumerate(sched):
+        assert slot == k % ring and parity == (k // ring) & 1
+        assert after == (-1 if k < ring else k - ring)
+        assert 1 <= rows <= page and (rows == page or i == n - 1)
+    assert sum(c[3] for c in first) == live
