@@ -61,7 +61,13 @@ on any fault:
              over the three caps, kernel, plain and library (two gathers
              and ``scaled_dot_product_attention`` with the length mask,
              three calls) times at every cap and the bound of the live
-             K/V bytes.
+             K/V bytes. Then the chain verify's row pattern (SPEC_K = 4:
+             4 slots x 5 = 20 rows, each slot's table repeated 5 times,
+             lengths n0+1 .. n0+5 clamped to the table's extent): within
+             1e-6 at every cap and split (bitwise reported), two calls
+             equal, one launch a call, the n_splits sweep whose winner is
+             the ``_r20`` record, and at the 8-page cap the kernel, plain,
+             library and bound times (each slot's live pages counted once).
 8. serve   — qwen3-0.6b at full width (28 layers, random weights from
              --seed), TimeFloats ``mode="pallas"``, bf16 activations,
              Engine(slots=4, max_len=512), 8 requests (prompts of 5-60
@@ -86,11 +92,35 @@ on any fault:
              the dense engine on 8 of 8 streams (the reference pins them
              bitwise); every fused-vs-gather divergence a near-tie flip
              (after the first token, within each other's top 8, leads <=
-             64 ulps). Last, an eviction case: a 16-page pool, 8 new tokens
-             each, kernels against plain versions (evictions, a conserved
-             pool, all-trash tables, >= 6 of 8 identical streams and
-             identical first tokens).
-10. K5     — the split-K absorbed-MLA paged decode at deepseek-v3's decode
+             64 ulps). Last, an eviction case through the model's first 7
+             layers: a 16-page pool, 8 new tokens each, kernels against
+             plain versions (evictions, a conserved pool, all-trash tables,
+             >= 6 of 8 identical streams and identical first tokens).
+10. chunked — the same model, Engine(chunk_tokens=64), dense (slots=4,
+             max_len=512) and paged (page_size=16, the paged phase's 48-token
+             shared prefix before every prompt): 8 greedy requests, 4 of
+             150-400 tokens and 4 of 5-60, 8 new tokens each, against the
+             same engine unchunked (kernels in both). Gates: chunk waves,
+             every long prompt's chunk log tiling it in order, one host
+             transfer per step, every divergence from the unchunked streams
+             a near-tie flip (the first token included); paged: radix hits,
+             a conserved pool, all-trash tables and K6 launched twice per
+             layer on every chunk wave.
+11. spec   — the same model, a paged engine with SpecConfig(k=4) against
+             the same engine without, on 8 greedy motif-tiled prompts
+             (tests/test_spec.py's) of 16 new tokens: once with the ngram
+             draft, once with a replay of the spec-off stream as the draft
+             (random weights never repeat themselves, so the ngram draft has
+             nothing to be accepted). Gates for both: K4 launched at 20 rows
+             on every layer of every step, K3 at 20 rows, scratch pages
+             released and the pool conserved, all-trash tables, every
+             divergence from the spec-off streams a near-tie flip (the logit
+             tap maps a verify column to the token index it emits); for the
+             replay, drafts accepted. Prints steps, tokens per step, tok/s
+             and TTFT of each beside the card's name and power limit. Then a
+             dense self-draft drain (draft="model", the target its own
+             draft, 4 requests of 16 tokens): acceptance >= 0.9.
+12. K5     — the split-K absorbed-MLA paged decode at deepseek-v3's decode
              shape (4 rows, 128 heads, latent 512 + rope 64, bf16 pools of
              16-token pages), tables of 1, 8 and 32 pages with ragged
              lengths (0 included) and trash entries: within 1e-6 of the
@@ -109,8 +139,8 @@ on any fault:
              the live latent bytes and the f32 flops; information only,
              the earlier library composition (``enable_gqa=True``, the kv
              head expanded H-fold). K6 is also held bitwise on the MLA
-             pools.
-11. train  — the same model and mode, remat="full", AdamW: run_loop for 3
+             pools. Then the chain verify's 20-row pattern as for K4.
+13. train  — the same model and mode, remat="full", AdamW: run_loop for 3
              steps of batch 4 x 256 from DataPipeline(kind="lm"), with a
              final checkpoint in a temporary directory. Per step: loss,
              grad norm, wall and host CPU seconds, K1 and K2 launches
@@ -120,7 +150,7 @@ on any fault:
              steps with the plain versions (step 0's loss bitwise, later
              losses within 1e-3), finite losses and norms, and the final
              checkpoint restoring bitwise.
-12. mla    — with qwen3's state freed: deepseek-v3 at full width cut to
+14. mla    — with qwen3's state freed: deepseek-v3 at full width cut to
              its three dense layers (``get_config("deepseek-v3-671b",
              n_layers=3)``: MLA, FFN 18432, vocab 129280, untied head;
              random weights from --seed), TimeFloats ``mode="pallas"``.
@@ -132,15 +162,18 @@ on any fault:
              the plain versions (gates: identical first tokens, >= 6 of 8
              identical streams, radix hits, a conserved pool, all-trash
              tables, K5 launched 3 times per decode step and K6 6 times
-             per prefill wave, none in the plain drain); then a dense
-             engine drain of 4 requests (8 new tokens, one at temperature
-             0.8, so the threefry key chain runs on the card), kernels
-             against plain versions: identical streams. Prints the peak
-             device memory.
+             per prefill wave, none in the plain drain); the same requests
+             with SpecConfig(k=4) and chunk_tokens=32 together against the
+             kernel drain (K5 at 20 rows on every layer of every step, chunk
+             waves, a conserved pool, every divergence a near-tie flip, peak
+             memory below 80 GB); then a dense engine drain of 4 requests (8
+             new tokens, one at temperature 0.8, so the threefry key chain
+             runs on the card), kernels against plain versions: identical
+             streams. Prints the peak device memory.
 
 The kernels' JSON record and then the card's name and power limit are
-printed on the two lines before the last; the last line is
-``{"ok": true, "device": {...}}``. Run from the repository root:
+printed on the two lines before the last, each phase's seconds as it
+ends; the last line is ``{"ok": true, "device": {...}}``. Run from the repository root:
 ``python3 chip_smoke.py`` (``--phases k1,paged`` runs a subset, in the
 order above, and records only the kernels it held).
 """
@@ -181,9 +214,12 @@ K4_SPLITS = (1, 2, 4, 8)
 K4_CAPS = (1, 8, 32)           # table extents (pages) held and timed
 PAGED_MIN_SAME = 6             # of 8 paged streams, kernels vs plain
 K5_TOL = K4_TOL                # K5 against its plain version, the same way
+SPEC_K = 4                     # draft depth of the speculative drains
+VERIFY_ROWS = SLOTS * (SPEC_K + 1)   # K4/K5 rows of a chain verify: 20
 MLA_LAYERS = 3                 # deepseek-v3's dense layers (first_k_dense)
-PHASES = ("k1", "k2", "k3", "k6", "k4", "k5", "serve", "paged", "train",
-          "mla")
+MLA_CHUNK = 32                 # chunk_tokens of the MLA spec+chunked drain
+PHASES = ("k1", "k2", "k3", "k6", "k4", "k5", "serve", "paged", "chunked",
+          "spec", "train", "mla")
 
 
 class SmokeFailure(Exception):
@@ -798,6 +834,48 @@ def k4_small_case(torch, gen, b, t, page, hkv, g, dk, dv, dtype):
     return q, kpool, vpool, pt, lens
 
 
+def verify_table(torch, gen, n_pages: int, n_tab: int):
+    """The chain verify's rows (``models/attention.verify_rows``) over an
+    ``n_tab``-page table: slot b's pending position n0[b] (a fresh slot,
+    one whose chain overhangs the table, one crossing a page, a random one)
+    and its SPEC_K + 1 rows of lengths n0[b] + 1 .. n0[b] + SPEC_K + 1
+    clamped to the table's extent, each row reading the slot's table.
+    Returns the (VERIFY_ROWS, n_tab) table, the row lengths and the
+    slots' live positions (each slot's longest row)."""
+    cap = n_tab * PAGE
+    rnd = int(torch.randint(0, cap, (1,), generator=gen,
+                            device="cuda").item())
+    n0 = torch.tensor([0, max(cap - 3, 0), (PAGE - 3) % cap, rnd],
+                      dtype=torch.int64, device="cuda")
+    j = torch.arange(SPEC_K + 1, device="cuda")
+    lens = torch.clamp_max(n0[:, None] + 1 + j[None, :], cap)
+    ids = torch.randperm(n_pages - 1, generator=gen,
+                         device="cuda")[:SLOTS * n_tab]
+    pt = (ids + 1).to(torch.int32).reshape(SLOTS, n_tab)
+    live = (lens[:, -1] + PAGE - 1) // PAGE
+    pt[torch.arange(n_tab, device="cuda")[None, :] >= live[:, None]] = 0
+    return (pt.repeat_interleave(SPEC_K + 1, dim=0),
+            lens.reshape(-1).to(torch.int32), int(lens[:, -1].sum().item()))
+
+
+def one_launch(torch, fn, what: str) -> None:
+    """Gate: one call of ``fn`` is one device launch, as the profiler sees
+    the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"{what} profiler: {len(on_device)} device launch(es) in one "
+          f"call: {on_device}", flush=True)
+    check(len(on_device) == 1, f"{what}: {len(on_device)} device launches "
+          f"in one call (expected 1): {on_device}")
+
+
 def k4_hold(torch, kpa, case, ns: int, what: str) -> tuple[float, bool]:
     """K4 against its plain version (gate K4_TOL of max(1, |plain|),
     finite, length-0 rows exactly 0) and bitwise equal on two calls.
@@ -838,9 +916,59 @@ K4_SMALL = ((2, 4, 8, 2, 2, 16, 16, "float32", 4),
 K4_TWO_KERNEL_MS = "0.0197-0.0199"
 
 
+def verify_pattern(torch, what: str, heads: int, dim: int, gen, make,
+                   hold, call, plain, library, n_pages: int, live_bytes
+                   ) -> int:
+    """K4 or K5 at the chain verify's row pattern (:func:`verify_table`):
+    at every cap of K4_CAPS and n_splits of K4_SPLITS within the kernel's
+    tolerance of its plain version (bitwise reported) and two calls equal,
+    one launch a call; the n_splits sweep summed over the caps, whose
+    winner is the record ``p{PAGE}_h{heads}_d{dim}_r{VERIFY_ROWS}``; at the
+    8-page cap the kernel, plain, library and bound times (the bound counts
+    each slot's live pages once, however many of its rows read them).
+    ``make[n_tab](pt, lens)`` builds the operands on the phase's pools of
+    that cap. Returns the winner."""
+    times = {ns: 0.0 for ns in K4_SPLITS}
+    worst, exact, vcases = 0.0, True, {}
+    for n_tab, build in make.items():
+        pt, lens, live = verify_table(torch, gen, n_pages, n_tab)
+        case = build(pt, lens)
+        for ns in K4_SPLITS:
+            err, same = hold(case, ns, f"verify rows={VERIFY_ROWS} "
+                             f"cap={n_tab}")
+            worst, exact = max(worst, err), exact and same
+        row = []
+        for ns in K4_SPLITS:
+            t = time_ms(torch, lambda: call(case, ns), reps=50)
+            times[ns] += t
+            row.append(f"{ns}:{t:.4f}")
+        print(f"{what} verify rows={VERIFY_ROWS} cap={n_tab:2d} pages "
+              f"lengths={lens.tolist()} ms by n_splits {' '.join(row)}",
+              flush=True)
+        vcases[n_tab] = (case, live)
+    best = min(K4_SPLITS, key=lambda n: times[n])
+    print(f"{what} verify rows={VERIFY_ROWS}: bitwise={exact} max "
+          f"|diff|/max(1,|plain|) {worst:.3e} at caps {K4_CAPS} x n_splits "
+          f"{K4_SPLITS}; two calls equal; n_splits winner {best} (record "
+          f"p{PAGE}_h{heads}_d{dim}_r{VERIFY_ROWS}: {best})", flush=True)
+    case, live = vcases[8]
+    one_launch(torch, lambda: call(case, best),
+               f"{what} verify rows={VERIFY_ROWS}")
+    ms = time_ms(torch, lambda: call(case, best), reps=50)
+    plain_ms = time_ms(torch, lambda: plain(case, best), reps=10)
+    lib = time_ms(torch, library(case), reps=50)
+    nbytes, ops, peak = live_bytes(case, live)
+    b_ms, b_by = bound(nbytes, ops, peak)
+    print(f"{what} verify rows={VERIFY_ROWS} cap=8 pages n_splits={best} "
+          f"slots' live positions={live} KiB={nbytes / 1024:.1f} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by}) share_of_bound={b_ms / ms:.4f}",
+          flush=True)
+    return best
+
+
 def phase_k4(torch, cfg, seed: int) -> dict:
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import paged_attn as kpa
 
@@ -851,14 +979,14 @@ def phase_k4(torch, cfg, seed: int) -> dict:
 
     def library(case):
         q, kpool, vpool, pt, lens = case
-        s_len = pt.shape[1] * PAGE
+        rows, s_len = pt.shape[0], pt.shape[1] * PAGE
         mask = (torch.arange(s_len, device="cuda")[None, :]
                 < lens[:, None])[:, None, None, :]
         q4 = q[:, :, None, :]
 
         def run():
-            k = kpool[pt].reshape(SLOTS, s_len, hkv, d).transpose(1, 2)
-            v = vpool[pt].reshape(SLOTS, s_len, hkv, d).transpose(1, 2)
+            k = kpool[pt].reshape(rows, s_len, hkv, d).transpose(1, 2)
+            v = vpool[pt].reshape(rows, s_len, hkv, d).transpose(1, 2)
             return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
                                                   enable_gqa=True)
         return run
@@ -917,19 +1045,8 @@ def phase_k4(torch, cfg, seed: int) -> dict:
               flush=True)
 
     q, kpool, vpool, pt, lens = cases[8]   # the paged drain's usual cap
-    # One CUDA kernel per call, as the profiler sees the device.
-    kpa.paged_decode_attention(q, kpool, vpool, pt, lens, n_splits=ns_best)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        kpa.paged_decode_attention(q, kpool, vpool, pt, lens,
-                                   n_splits=ns_best)
-        torch.cuda.synchronize()
-    on_device = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    print(f"K4 profiler: {len(on_device)} device launch(es) in one call: "
-          f"{on_device}", flush=True)
-    check(len(on_device) == 1, f"K4: {len(on_device)} device launches in "
-          f"one call (expected 1): {on_device}")
+    one_launch(torch, lambda: kpa.paged_decode_attention(
+        q, kpool, vpool, pt, lens, n_splits=ns_best), "K4")
 
     ms = time_ms(torch, lambda: kpa.paged_decode_attention(
         q, kpool, vpool, pt, lens, n_splits=ns_best), reps=50)
@@ -943,6 +1060,22 @@ def phase_k4(torch, cfg, seed: int) -> dict:
               + SLOTS * cfg.n_heads * d * 4 + pt.numel() * 4 + SLOTS * 4)
     b_ms, b_by = bound(nbytes, 4.0 * live * cfg.n_heads * d,
                        BF16_FLOPS_PER_S)
+    verify_pattern(torch, "K4", cfg.n_heads, d, gen, {
+        n_tab: (lambda pt, lens, c=c: (
+            torch.randn(VERIFY_ROWS, cfg.n_heads, d, generator=gen,
+                        device="cuda").bfloat16(), c[1], c[2], pt, lens))
+        for n_tab, c in cases.items()},
+        hold=lambda case, ns, what: k4_hold(torch, kpa, case, ns, what),
+        call=lambda case, ns: kpa.paged_decode_attention(*case, n_splits=ns),
+        plain=lambda case, ns: kpa._combine(*kpa._gqa_plain(
+            *case, scale=1.0 / math.sqrt(d), n_splits=ns)),
+        library=library, n_pages=kpool.shape[0],
+        live_bytes=lambda case, live: (
+            live * hkv * 2 * d * kpool.element_size() + case[0].numel() * 2
+            + VERIFY_ROWS * cfg.n_heads * d * 4 + case[3].numel() * 4
+            + VERIFY_ROWS * 4,
+            4.0 * int(case[4].sum().item()) * cfg.n_heads * d,
+            BF16_FLOPS_PER_S))
     per = cfg.n_layers
     print(f"K4 cap=8 pages n_splits={ns_best} live_positions={live} "
           f"KiB_live={nbytes / 1024:.1f} ms={ms:.4f} "
@@ -1123,8 +1256,13 @@ def bf16_ulp(x: float) -> float:
 def _row(table: dict, uid: int, i: int, tok: int):
     """The top logits of the row that produced token ``tok`` as token i of
     request ``uid``: every request is greedy, so ``tok`` holds the row's
-    largest logit (ties go to the lowest id)."""
-    for top in table.get((uid, i), []):
+    largest logit (ties go to the lowest id). A chain verify samples token
+    i (counter i) in every step whose chain reaches it, and emits it in
+    the last of them (the counter moves past it), so past the first token
+    the last such row is the one; the first token's key, (uid, 0), is
+    also that of the dummy rows of later waves, so there the first."""
+    rows = table.get((uid, i), [])
+    for top in (reversed(rows) if i else rows):
         if tok in top and top[tok] == max(top.values()):
             return top
     return None
@@ -1144,7 +1282,8 @@ def _lead(top, a: int, b: int):
 NEAR_TIE_ULPS = 64
 
 
-def divergence_report(what: str, a: tuple, b: tuple) -> dict:
+def divergence_report(what: str, a: tuple, b: tuple, phase: str = "paged",
+                      first_ok: bool = False) -> dict:
     """Streams of two greedy drains, ``a`` and ``b`` = (name, streams, tap
     table): how many are identical and, for each that is not, the first
     differing token, how far each drain's own pick leads the other's pick
@@ -1152,9 +1291,10 @@ def divergence_report(what: str, a: tuple, b: tuple) -> dict:
     picks are each other's runner-up (a swap of the top two). Beside them,
     the noise: the largest gap between the two drains' top logits at any
     token before a stream's first divergence (the same history in both).
-    A near-tie flip is a divergence after the first token to a pick the
-    other drain ranks high, by a small lead; a broken kernel diverges at
-    once and to tokens the other drain ranks low."""
+    A near-tie flip is a divergence after the first token (at any token
+    with ``first_ok``, for drains whose prefills compute differently) to a
+    pick the other drain ranks high, by a small lead; a broken kernel
+    diverges at once and to tokens the other drain ranks low."""
     (na, sa, ta), (nb, sb, tb) = a, b
     same, noise, swaps, rows, near = 0, 0.0, 0, 0, True
     for u in sorted(sa):
@@ -1176,16 +1316,17 @@ def divergence_report(what: str, a: tuple, b: tuple) -> dict:
         swap = second(ea, y) and second(eb, x)
         swaps += swap
         rows += 1
-        near = (near and d > 0 and la is not None and lb is not None
-                and max(la, lb) <= NEAR_TIE_ULPS)
+        near = (near and (d > 0 or first_ok) and la is not None
+                and lb is not None and max(la, lb) <= NEAR_TIE_ULPS)
         fmt = lambda v: "n/a" if v is None else f"{v:.2f}"  # noqa: E731
-        print(f"paged: {what}: uid {u} first differs at token {d} ({na} "
+        print(f"{phase}: {what}: uid {u} first differs at token {d} ({na} "
               f"{x}, {nb} {y}); {na}'s lead of {x} over {y} {fmt(la)}, "
               f"{nb}'s lead of {y} over {x} {fmt(lb)} bf16 ulps; top-two "
               f"swap {swap}", flush=True)
-    print(f"paged: {what}: identical streams {same}/{len(sa)}; divergences "
-          f"that are top-two swaps {swaps}/{rows}; all near-tie flips "
-          f"(after the first token, within each other's top {TAP_TOP}, "
+    where = "at any token" if first_ok else "after the first token"
+    print(f"{phase}: {what}: identical streams {same}/{len(sa)}; divergences"
+          f" that are top-two swaps {swaps}/{rows}; all near-tie flips "
+          f"({where}, within each other's top {TAP_TOP}, "
           f"leads <= {NEAR_TIE_ULPS} ulps) {near}; noise between the two "
           f"drains' top logits before divergence {noise:.2f} bf16 ulps",
           flush=True)
@@ -1194,6 +1335,10 @@ def divergence_report(what: str, a: tuple, b: tuple) -> dict:
 
 EVICT_PAGES = 17      # the eviction case's pool: 16 pages and the trash page
 EVICT_NEW = 8         # its new tokens per request (trimmed from 16)
+# Its depth: the model's first 7 of 28 layers (cut when the chunked and
+# speculative phases came, to keep the smoke near its length; the pool's
+# eviction does not depend on depth).
+EVICT_LAYERS = 7
 
 
 def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
@@ -1307,7 +1452,10 @@ def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
         check(rep["near_ties"], f"paged: {what} fused split-K against the "
               "gather composition: a divergence that is not a near-tie flip")
 
-    # Eviction: a 16-page pool for 8 requests of up to 8 pages, 4 at a time.
+    # Eviction: a 16-page pool for 8 requests of up to 8 pages, 4 at a time,
+    # through the model's first EVICT_LAYERS layers.
+    cfg = dataclasses.replace(cfg, n_layers=EVICT_LAYERS)
+    params = dict(params, layers=params["layers"][:EVICT_LAYERS])
     reset()
     ev_eng, ev, _, _ = _paged_drain(torch, params, cfg, seed,
                                     max_new=EVICT_NEW, num_pages=EVICT_PAGES)
@@ -1320,7 +1468,8 @@ def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
     ev_same = sum(ev[u] == ev_ref.get(u) for u in ev)
     ev_firsts = sorted(ev) == sorted(ev_ref) and all(
         ev[u][0] == ev_ref[u][0] for u in ev)
-    print(f"paged evict: pool {EVICT_PAGES} pages, {EVICT_NEW} new tokens: "
+    print(f"paged evict: {EVICT_LAYERS} layers, pool {EVICT_PAGES} pages, "
+          f"{EVICT_NEW} new tokens: "
           + " ".join(f"{k}={ev_st[k]:g}" for k in (
               "steps", "radix_hits", "radix_evictions", "pool_pages_total",
               "pool_pages_in_use", "pool_pages_free"))
@@ -1341,6 +1490,312 @@ def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
           " identical")
     reset()
     return launches
+
+
+CHUNK = 64                     # chunk_tokens of the chunked phase
+CHUNK_LONG = (150, 400)        # its long prompts' lengths
+
+
+class RowCount:
+    """Counts the launches of a kernel wrapper's CUDA entry by their row
+    count (the first dimension of the first operand), while entered."""
+
+    def __init__(self, mod, name: str):
+        self.mod, self.name, self.rows = mod, name, {}
+
+    def __enter__(self):
+        real = self.real = getattr(self.mod, self.name)
+
+        def counted(q, *a, **kw):
+            self.rows[q.shape[0]] = self.rows.get(q.shape[0], 0) + 1
+            return real(q, *a, **kw)
+
+        setattr(self.mod, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+
+def _drive(torch, eng, reqs):
+    """Submit ``reqs`` and step ``eng`` until drained. Returns the streams,
+    the wall and host CPU seconds, the step() calls and the most host
+    transfers any one call made."""
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0, c0 = time.monotonic(), time.process_time()
+    done, calls, most = [], 0, 0
+    while eng.active or eng._chunking or eng.queue:
+        h0 = eng.host_transfers
+        done.extend(eng.step())
+        calls += 1
+        most = max(most, eng.host_transfers - h0)
+        check(calls < 10_000, "a drain did not end")
+    torch.cuda.synchronize()
+    return ({f.uid: [int(t) for t in f.tokens] for f in done},
+            time.monotonic() - t0, time.process_time() - c0, calls, most)
+
+
+def _chunk_requests(cfg, seed: int, prefix: bool):
+    """8 greedy requests of 8 new tokens: 4 long prompts (CHUNK_LONG
+    tokens) and 4 of PROMPT_LENS tokens, alternating; with ``prefix``
+    each after the paged phase's 48-token shared prefix."""
+    import numpy as np
+
+    from repro_torch.serve.request import Request
+
+    shared = np.random.default_rng(seed + 5).integers(
+        0, cfg.vocab_size, PREFIX).astype(np.int32)
+    rng = np.random.default_rng(seed + 9)
+    lens = np.empty(8, np.int64)
+    lens[0::2] = rng.integers(CHUNK_LONG[0], CHUNK_LONG[1] + 1, 4)
+    lens[1::2] = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, 4)
+    out = []
+    for i, n in enumerate(lens):
+        p = rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+        out.append(Request(uid=i, prompt=np.concatenate([shared, p])
+                           if prefix else p, max_new_tokens=DENSE_NEW))
+    return out
+
+
+def _report(what: str, eng, streams: dict, wall: float, calls: int,
+            most: int, launches: dict) -> dict:
+    st = eng.stats()
+    new = int(st["new_tokens"])
+    print(f"{what}: drained {int(st['finished'])} requests, {new} tokens in "
+          f"{wall:.2f}s: tok/s={new / wall:.2f} ttft_p50_s="
+          f"{st['ttft_p50_s']:.4f} steps={eng.steps} step_calls={calls} "
+          f"host_transfers={eng.host_transfers} (most in one step {most}) "
+          f"chunk_waves={eng.chunk_waves} launches={launches}", flush=True)
+    check(most <= 1, f"{what}: {most} host transfers in one step")
+    return st
+
+
+def phase_chunked(torch, cfg, seed: int, params) -> dict:
+    """Chunked prefill at full width: Engine(chunk_tokens=CHUNK), dense
+    and paged, against the same engine unchunked (kernels in both)."""
+    from repro_torch.kernels import paged as kp
+    from repro_torch.kernels import paged_attn as kpa
+    from repro_torch.kernels import sampling as ks
+    from repro_torch.kernels import timefloats_matmul as km
+    from repro_torch.serve.engine import Engine
+
+    counters = {"K1": km.timefloats_matmul_quantized, "K3": ks.sample,
+                "K4": kpa.paged_decode_attention, "K6": kp.gather_pages}
+    out = {}
+    for paged in (False, True):
+        mode = "paged" if paged else "dense"
+        kw = dict(slots=SLOTS, max_len=MAX_LEN, seed=seed, paged=paged,
+                  page_size=PAGE)
+        for fn in counters.values():
+            fn.launches = 0
+        eng = Engine(params, cfg, chunk_tokens=CHUNK, **kw)
+        k6_chunks = [0]
+        run_wave = eng._run_chunk_wave
+
+        def counted_wave(run_wave=run_wave):
+            k0 = kp.gather_pages.launches
+            res = run_wave()
+            k6_chunks[0] += kp.gather_pages.launches - k0
+            return res
+
+        eng._run_chunk_wave = counted_wave
+        reqs = _chunk_requests(cfg, seed, prefix=paged)
+        with LogitTap() as tap_c:
+            got, wall, _, calls, most = _drive(torch, eng, reqs)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        st = _report(f"chunked {mode}", eng, got, wall, calls, most,
+                     launches)
+        base = Engine(params, cfg, **kw)
+        with LogitTap() as tap_u:
+            ref, ref_wall, _, ref_calls, ref_most = _drive(
+                torch, base, _chunk_requests(cfg, seed, prefix=paged))
+        _report(f"chunked {mode} (unchunked engine)", base, ref, ref_wall,
+                ref_calls, ref_most, {})
+        rep = divergence_report(f"{mode} chunked vs unchunked",
+                                ("chunked", got, tap_c.table()),
+                                ("unchunked", ref, tap_u.table()),
+                                phase="chunked", first_ok=True)
+        check(sorted(got) == list(range(8)) and all(
+            len(t) == DENSE_NEW for t in got.values()),
+            f"chunked {mode}: 8 requests of {DENSE_NEW} tokens")
+        check(rep["near_ties"], f"chunked {mode}: a divergence from the "
+              "unchunked engine that is not a near-tie flip")
+        check(eng.chunk_waves > 0, f"chunked {mode}: no chunk wave")
+        tiles: dict = {}
+        for uid, off, n in eng.chunk_log:
+            tiles.setdefault(uid, []).append((off, n))
+        for r in reqs:
+            pos = tiles.get(r.uid, [(len(r.prompt), 0)])[0][0]
+            for off, n in tiles.get(r.uid, []):
+                check(off == pos and 0 < n <= CHUNK,
+                      f"chunked {mode}: uid {r.uid}'s chunks do not tile")
+                pos += n
+            check(pos == len(r.prompt), f"chunked {mode}: uid {r.uid}'s "
+                  "chunks do not reach the prompt's end")
+        long_uids = [r.uid for r in reqs if len(r.prompt) >= CHUNK_LONG[0]]
+        check(all(u in tiles for u in long_uids),
+              f"chunked {mode}: a long prompt was not chunked")
+        check(launches["K1"] > 0 and launches["K3"] > 0,
+              f"chunked {mode}: launches {launches}")
+        if paged:
+            check(st["radix_hits"] > 0, "chunked paged: no radix hit")
+            check(eng.pool.conserved() and base.pool.conserved(),
+                  "chunked paged: pool not conserved")
+            check(not bool(eng.state.cache.layers[0].pt.any()),
+                  "chunked paged: page tables not all-trash after the drain")
+            check(k6_chunks[0] == 2 * cfg.n_layers * eng.chunk_waves,
+                  f"chunked paged: {k6_chunks[0]} K6 launches in "
+                  f"{eng.chunk_waves} chunk waves")
+            print("chunked paged: " + " ".join(f"{k}={st[k]:g}" for k in (
+                "radix_hits", "radix_hit_rate", "pool_pages_in_use",
+                "pool_pages_free")) + f"; K6 launches on chunk waves "
+                f"{k6_chunks[0]}", flush=True)
+            out = launches
+    return out
+
+
+def _motif_requests(cfg, seed: int, n: int, max_new: int):
+    """tests/test_spec.py's motif-tiled prompts at full vocabulary: 3 or 4
+    tiles of one 8-token motif and 2 random tokens, greedy."""
+    import numpy as np
+
+    from repro_torch.serve.request import Request
+
+    rng = np.random.default_rng(seed + 10)
+    motif = rng.integers(0, cfg.vocab_size, 8).astype(np.int32)
+    return [Request(uid=u, prompt=np.concatenate([
+        np.tile(motif, 3 + u % 2),
+        rng.integers(0, cfg.vocab_size, 2).astype(np.int32)]),
+        max_new_tokens=max_new) for u in range(n)]
+
+
+def replay_drafts(eng, streams: dict):
+    """Replace ``eng``'s ngram draft by a replay of ``streams`` (uid ->
+    tokens, the spec-off drain's): each active slot proposes the next
+    SPEC_K tokens of its request's stream after those it has emitted. It
+    tests the accept path (several tokens a step, the rollback, scratch
+    pages) where the ngram draft has nothing to offer: a model with random
+    weights does not repeat itself (run 1 of this phase accepted none of
+    480 ngram drafts)."""
+    import numpy as np
+
+    def build():
+        draft = np.zeros((eng.slots, SPEC_K), np.int32)
+        for slot, req in eng.active.items():
+            nxt = streams[req.uid][len(req.generated):][:SPEC_K]
+            draft[slot, :len(nxt)] = nxt
+        return draft
+
+    eng._build_drafts = build
+
+
+SELF_DRAFT_MIN = 0.9   # self-draft acceptance on the card
+# The self-draft drain's new tokens: the prefill's and three whole chains
+# of SPEC_K + 1, so the budget cuts no chain short (a cut chain's unemitted
+# drafts count as rejected). A near-tie flip between the draft's 4-row
+# decode and the 20-row verify costs SPEC_K + 1 drafts (those it rejects,
+# then those the budget cuts from the extra step it causes): three chains
+# keep one flip above SELF_DRAFT_MIN (47 of 52), two would not (31 of
+# 36, run 3 of this phase).
+SELF_DRAFT_NEW = 1 + 3 * (SPEC_K + 1)
+
+
+def phase_spec(torch, cfg, seed: int, params) -> dict:
+    """Speculative decoding at full width: a paged engine with SPEC_K-token
+    drafts, ngram and then a replay of the spec-off stream, each against
+    the same engine without speculation; then a dense self-draft drain."""
+    from repro_torch.kernels import paged as kp
+    from repro_torch.kernels import paged_attn as kpa
+    from repro_torch.kernels import sampling as ks
+    from repro_torch.kernels import timefloats_matmul as km
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.spec import SpecConfig
+
+    counters = {"K1": km.timefloats_matmul_quantized, "K3": ks.sample,
+                "K4": kpa.paged_decode_attention, "K6": kp.gather_pages}
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, seed=seed, paged=True,
+              page_size=PAGE)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+
+    def summary(what, e, st_, wall_):
+        # A verify step emits 1 + (accepted drafts) tokens per active slot.
+        per_slot = 1.0 + SPEC_K * st_.get("spec_accept_rate", 0.0)
+        print(f"{what}: steps={e.steps} tokens_per_step (all slots)="
+              f"{st_['new_tokens'] / max(e.steps, 1):.3f} tokens_per_slot_"
+              f"step={per_slot:.3f} tok/s={st_['new_tokens'] / wall_:.2f} "
+              f"ttft_p50_s={st_['ttft_p50_s']:.4f} ({smi})", flush=True)
+
+    base = Engine(params, cfg, **kw)
+    with LogitTap() as tap_b:
+        ref, ref_wall, _, ref_calls, ref_most = _drive(
+            torch, base, _motif_requests(cfg, seed, 8, 16))
+    summary("spec off", base, _report("spec off", base, ref, ref_wall,
+                                      ref_calls, ref_most, {}), ref_wall)
+    out = {}
+    for draft in ("ngram", "replay"):
+        what = f"spec {draft}"
+        for fn in counters.values():
+            fn.launches = 0
+        eng = Engine(params, cfg, spec=SpecConfig(k=SPEC_K), **kw)
+        if draft == "replay":
+            replay_drafts(eng, ref)
+        with LogitTap() as tap_s, RowCount(kpa, "_gqa_kernel") as k4_rows:
+            got, wall, _, calls, most = _drive(
+                torch, eng, _motif_requests(cfg, seed, 8, 16))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        k3_rows: dict = {}   # the engine's sampling calls, one K3 each
+        for values, *_ in tap_s.calls:
+            k3_rows[values.shape[0]] = k3_rows.get(values.shape[0], 0) + 1
+        st = _report(what, eng, got, wall, calls, most, launches)
+        summary(what, eng, st, wall)
+        print(f"{what}: accepted {int(st['spec_accepted'])} of "
+              f"{int(st['spec_proposed'])} drafts (rate "
+              f"{st['spec_accept_rate']:.4f}); K4 launches by rows "
+              f"{k4_rows.rows}; K3 launches by rows {k3_rows}", flush=True)
+        rep = divergence_report(f"{draft} spec on vs spec off",
+                                (draft, got, tap_s.table()),
+                                ("off", ref, tap_b.table()), phase="spec")
+        check(sorted(got) == list(range(8)) and all(
+            len(t) == 16 for t in got.values()),
+            f"{what}: 8 requests of 16 tokens")
+        check(rep["near_ties"], f"{what}: a divergence from the spec-off "
+              "engine that is not a near-tie flip")
+        check(k4_rows.rows.get(VERIFY_ROWS, 0) > 0
+              and launches["K4"] == cfg.n_layers * eng.steps,
+              f"{what}: K4 launches {k4_rows.rows} in {eng.steps} steps")
+        check(k3_rows.get(VERIFY_ROWS, 0) > 0 and sum(k3_rows.values())
+              == launches["K3"], f"{what}: K3 launches by rows {k3_rows}")
+        check(eng.pool.conserved() and eng.pool.pages_in_use
+              == eng.radix.evictable_pages(),
+              f"{what}: scratch pages not released or the pool not "
+              "conserved")
+        check(not bool(eng.state.cache.layers[0].pt.any()),
+              f"{what}: page tables not all-trash after the drain")
+        if draft == "replay":
+            check(st["spec_accepted"] > 0, f"{what}: no draft accepted")
+        else:
+            out = launches
+
+    # The target as its own draft: every chain should be accepted.
+    sd = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed,
+                spec=SpecConfig(k=SPEC_K, draft="model", draft_params=params,
+                                draft_cfg=cfg))
+    sd_got, sd_wall, _, sd_calls, sd_most = _drive(
+        torch, sd, _motif_requests(cfg, seed, 4, SELF_DRAFT_NEW))
+    sd_st = _report("spec self-draft", sd, sd_got, sd_wall, sd_calls,
+                    sd_most, {})
+    print(f"spec self-draft: acceptance {sd_st['spec_accept_rate']:.4f} "
+          f"({int(sd_st['spec_accepted'])}/{int(sd_st['spec_proposed'])}; "
+          f"gate >= {SELF_DRAFT_MIN}) tokens_per_step="
+          f"{sd_st['new_tokens'] / max(sd.steps, 1):.3f}", flush=True)
+    check(sorted(sd_got) == list(range(4)), "spec self-draft: 4 requests")
+    check(sd_st["spec_accept_rate"] >= SELF_DRAFT_MIN,
+          f"spec self-draft: acceptance {sd_st['spec_accept_rate']}")
+    return out
 
 
 def phase_train(torch, cfg, seed: int) -> dict:
@@ -1552,7 +2007,6 @@ K5_TWO_KERNEL_MS = "0.0730-0.0736"
 
 def phase_k5(torch, cfg, seed: int) -> dict:
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import paged as kp
     from repro_torch.kernels import paged_attn as kpa
@@ -1571,15 +2025,15 @@ def phase_k5(torch, cfg, seed: int) -> dict:
         ``gqa`` the earlier composition instead: H heads of one query row
         with ``enable_gqa=True``, which expands the kv head H-fold."""
         q_lat, q_rope, cpool, rpool, pt, lens = ops
-        s_len = pt.shape[1] * PAGE
+        rows, s_len = pt.shape[0], pt.shape[1] * PAGE
         mask = (torch.arange(s_len, device="cuda")[None, :]
                 < lens[:, None])[:, None, None, :]
         q = torch.cat([q_lat, q_rope.float()], dim=-1)
         q = q[:, :, None, :] if gqa else q[:, None]
 
         def run():
-            ck = cpool[pt].reshape(SLOTS, 1, s_len, c).float()
-            kr = rpool[pt].reshape(SLOTS, 1, s_len, r).float()
+            ck = cpool[pt].reshape(rows, 1, s_len, c).float()
+            kr = rpool[pt].reshape(rows, 1, s_len, r).float()
             return F.scaled_dot_product_attention(
                 q, torch.cat([ck, kr], dim=-1), ck, attn_mask=mask,
                 scale=scale, enable_gqa=gqa)
@@ -1645,18 +2099,8 @@ def phase_k5(torch, cfg, seed: int) -> dict:
 
     rec = cases[8]   # the paged drain's usual cap
     q_lat, q_rope, cpool, rpool, pt, lens = rec
-    # One CUDA kernel per call, as the profiler sees the device.
-    kpa.paged_decode_mla(*rec, scale=scale, n_splits=ns_best)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        kpa.paged_decode_mla(*rec, scale=scale, n_splits=ns_best)
-        torch.cuda.synchronize()
-    on_device = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    print(f"K5 profiler: {len(on_device)} device launch(es) in one call: "
-          f"{on_device}", flush=True)
-    check(len(on_device) == 1, f"K5: {len(on_device)} device launches in "
-          f"one call (expected 1): {on_device}")
+    one_launch(torch, lambda: kpa.paged_decode_mla(
+        *rec, scale=scale, n_splits=ns_best), "K5")
 
     ms = time_ms(torch, lambda: kpa.paged_decode_mla(
         *rec, scale=scale, n_splits=ns_best), reps=50)
@@ -1675,6 +2119,25 @@ def phase_k5(torch, cfg, seed: int) -> dict:
               + SLOTS * 4)
     b_ms, b_by = bound(nbytes, 2.0 * h * live * (c + r + c),
                        F32_FLOPS_PER_S)
+    verify_pattern(torch, "K5", h, c + r, gen, {
+        n_tab: (lambda pt, lens, o=o: (
+            torch.randn(VERIFY_ROWS, h, c, generator=gen,
+                        device="cuda") * 0.05,
+            torch.randn(VERIFY_ROWS, h, r, generator=gen,
+                        device="cuda").bfloat16(), o[2], o[3], pt, lens))
+        for n_tab, o in cases.items()},
+        hold=lambda ops, ns, what: k5_hold(torch, kpa, ops, scale, ns, what),
+        call=lambda ops, ns: kpa.paged_decode_mla(*ops, scale=scale,
+                                                  n_splits=ns),
+        plain=lambda ops, ns: kpa._combine(*kpa._mla_plain(
+            *ops, scale=scale, n_splits=ns)),
+        library=library, n_pages=cpool.shape[0],
+        live_bytes=lambda ops, live: (
+            live * (c + r) * cpool.element_size() + ops[0].numel() * 4
+            + ops[1].numel() * 2 + VERIFY_ROWS * h * c * 4
+            + ops[4].numel() * 4 + VERIFY_ROWS * 4,
+            2.0 * h * int(ops[5].sum().item()) * (c + r + c),
+            F32_FLOPS_PER_S))
     per = cfg.n_layers
     print(f"K5 cap=8 pages n_splits={ns_best} live_positions={live} "
           f"KiB_moved={nbytes / 1024:.1f} ms={ms:.4f} (two-kernel design: "
@@ -1840,7 +2303,8 @@ def phase_mla(torch, cfg, seed: int) -> dict:
     model.prefill_into_pages = counted
     try:
         reset()
-        eng, streams, wall, cpu = _paged_drain(torch, params, cfg, seed)
+        with LogitTap() as tap_k:
+            eng, streams, wall, cpu = _paged_drain(torch, params, cfg, seed)
         launches = {k: fn.launches for k, fn in counters.items()}
         n_waves = waves[0]
         reset()
@@ -1897,7 +2361,46 @@ def phase_mla(torch, cfg, seed: int) -> dict:
           "mla paged: page tables not all-trash after the drain")
     check(all(v == 0 for v in plain_launches.values()),
           f"mla paged: the plain drain launched {plain_launches}")
-    del eng, ref_eng
+    del ref_eng
+
+    # The same requests, speculative (ngram, SPEC_K) and chunked together,
+    # against the kernel drain above.
+    from repro_torch.serve.spec import SpecConfig
+
+    reset()
+    with LogitTap() as tap_sc, RowCount(kpa, "_mla_kernel") as k5_rows:
+        sc_eng, sc, sc_wall, _ = _paged_drain(
+            torch, params, cfg, seed, spec=SpecConfig(k=SPEC_K),
+            chunk_tokens=MLA_CHUNK)
+    sc_launches = {k: fn.launches for k, fn in counters.items()}
+    sc_st = sc_eng.stats()
+    print(f"mla spec+chunked: drained {int(sc_st['finished'])} requests in "
+          f"{sc_wall:.2f}s: tok/s={sc_st['new_tokens'] / sc_wall:.2f} "
+          f"steps={sc_eng.steps} (kernel drain {eng.steps}) chunk_waves="
+          f"{sc_eng.chunk_waves} accepted {int(sc_st['spec_accepted'])} of "
+          f"{int(sc_st['spec_proposed'])} drafts; launches={sc_launches}; "
+          f"K5 launches by rows {k5_rows.rows}; peak_mem_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+    rep_sc = divergence_report("spec+chunked vs the kernel drain",
+                               ("spec+chunked", sc, tap_sc.table()),
+                               ("kernels", streams, tap_k.table()),
+                               phase="mla", first_ok=True)
+    check(sorted(sc) == list(range(8)) and all(
+        len(t) == 16 for t in sc.values()),
+        "mla spec+chunked: 8 requests of 16 tokens")
+    check(rep_sc["near_ties"], "mla spec+chunked: a divergence from the "
+          "kernel drain that is not a near-tie flip")
+    check(k5_rows.rows.get(VERIFY_ROWS, 0) > 0
+          and sc_launches["K5"] == layers * sc_eng.steps,
+          f"mla spec+chunked: K5 launches {k5_rows.rows} in "
+          f"{sc_eng.steps} steps")
+    check(sc_eng.chunk_waves > 0, "mla spec+chunked: no chunk wave")
+    check(sc_eng.pool.conserved() and sc_eng.pool.pages_in_use
+          == sc_eng.radix.evictable_pages(),
+          "mla spec+chunked: pool not conserved")
+    check(torch.cuda.max_memory_allocated() < 80e9,
+          "mla spec+chunked: peak device memory >= 80 GB")
+    del eng, sc_eng
 
     def dense_drain():
         e = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed)
@@ -1975,39 +2478,49 @@ def main(argv=None) -> int:
     cfg_mla = get_config("deepseek-v3-671b", n_layers=MLA_LAYERS,
                          tf=TFConfig(mode="pallas"))
     recs, launches = {}, {}
+
+    def timed(name, fn, *a):
+        t0 = time.monotonic()
+        out = fn(*a)
+        print(f"phase {name}: {time.monotonic() - t0:.1f}s", flush=True)
+        return out
+
     try:
         if "k1" in phases:
-            recs["K1 decode"], recs["K1 train"] = phase_k1(torch, cfg,
-                                                           args.seed)
+            recs["K1 decode"], recs["K1 train"] = timed(
+                "k1", phase_k1, torch, cfg, args.seed)
         if "k2" in phases:
-            recs["K2"] = phase_k2(torch, cfg, args.seed)
+            recs["K2"] = timed("k2", phase_k2, torch, cfg, args.seed)
         if "k3" in phases:
-            recs["K3"] = phase_k3(torch, cfg, args.seed, cfg_mla.vocab_size)
+            recs["K3"] = timed("k3", phase_k3, torch, cfg, args.seed,
+                               cfg_mla.vocab_size)
         if "k6" in phases:
-            recs["K6"] = phase_k6(torch, cfg, args.seed)
+            recs["K6"] = timed("k6", phase_k6, torch, cfg, args.seed)
         if "k4" in phases:
-            recs["K4"] = phase_k4(torch, cfg, args.seed)
+            recs["K4"] = timed("k4", phase_k4, torch, cfg, args.seed)
         if "k5" in phases:
-            recs["K5"] = phase_k5(torch, cfg_mla, args.seed)
-        if phases & {"serve", "paged"}:
+            recs["K5"] = timed("k5", phase_k5, torch, cfg_mla, args.seed)
+        serving = ("serve", phase_serve), ("paged", phase_paged_serve), (
+            "chunked", phase_chunked), ("spec", phase_spec)
+        if phases & {name for name, _ in serving}:
             t0 = time.monotonic()
             params = model.init(cfg, args.seed, device="cuda")
             torch.cuda.synchronize()
             print(f"serve: init {cfg.name} ({cfg.n_layers} layers, d_model "
                   f"{cfg.d_model}, vocab {cfg.vocab_size}) in "
                   f"{time.monotonic() - t0:.1f}s", flush=True)
-            if "serve" in phases:
-                launches["serve"] = phase_serve(torch, cfg, args.seed, params)
-            if "paged" in phases:
-                launches["paged"] = phase_paged_serve(torch, cfg, args.seed,
-                                                      params)
+            for name, fn in serving:
+                if name in phases:
+                    launches[name] = timed(name, fn, torch, cfg, args.seed,
+                                           params)
             del params
         if "train" in phases:
-            launches["train"] = phase_train(torch, cfg, args.seed)
+            launches["train"] = timed("train", phase_train, torch, cfg,
+                                      args.seed)
             torch.cuda.empty_cache()
         if "mla" in phases:
-            launches["mla"], recs["K1 mla"] = phase_mla(torch, cfg_mla,
-                                                        args.seed)
+            launches["mla"], recs["K1 mla"] = timed(
+                "mla", phase_mla, torch, cfg_mla, args.seed)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -7,11 +7,14 @@ counters.
 
 runs full-width qwen3-0.6b on the card; ``--device cpu --reduced`` runs
 the reduced config on the CPU, where every kernel's plain version runs.
-The request stream from ``--seed`` is the reference launcher's: prompts of
-4 to min(64, max_len / 2) tokens, each after ``--prefix-len`` shared
-tokens. The reference's ``--engine legacy``, ``--chunk-tokens``,
-``--sched cost``, ``--spec``, tracing, metrics, health and wear options
-wait for the slices that port them.
+``--chunk-tokens C`` prefills prompts longer than C in C-token chunk waves;
+``--spec`` (greedy only) drafts ``--spec-k`` tokens a step by prompt
+lookup and verifies them in one call. The request stream from ``--seed``
+is the reference launcher's: prompts of 4 to min(64, max_len / 2) tokens
+(with ``--spec``, tiles of one 8-token motif), each after ``--prefix-len``
+shared tokens. The reference's ``--engine legacy``, ``--sched cost``,
+tracing, metrics, health and wear options wait for the slices that port
+them.
 """
 import argparse
 import dataclasses
@@ -39,8 +42,20 @@ def main(argv=None):
     ap.add_argument("--prefix-len", type=int, default=0,
                     help="shared system-prompt tokens prepended to every "
                          "request (exercises the radix prefix cache)")
+    ap.add_argument("--chunk-tokens", type=int, default=0,
+                    help="chunked prefill: pow2 chunk size (0 = whole-prompt"
+                         " waves)")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative decoding: ngram draft + batched chain "
+                         "verify (greedy only)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="speculative chain depth (draft tokens per step)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.spec and args.temperature > 0:
+        print("--spec requires greedy decoding (temperature 0)",
+              file=sys.stderr)
+        return 2
 
     import torch
 
@@ -49,6 +64,7 @@ def main(argv=None):
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.request import Request, percentile
+    from repro_torch.serve.spec import SpecConfig
 
     # The plain K1 takes each chunk's integer dot as an f32 matmul, exact
     # only without TF32.
@@ -62,19 +78,27 @@ def main(argv=None):
              else "cpu")
     print(f"device {where}; arch={args.arch} reduced={args.reduced} "
           f"quant={args.quant} layers={cfg.n_layers} slots={args.slots} "
-          f"paged={args.paged}", flush=True)
+          f"paged={args.paged} chunk_tokens={args.chunk_tokens} "
+          f"spec={args.spec}", flush=True)
 
     params = M.init(cfg, args.seed, device=device)
     eng = Engine(params, cfg, slots=args.slots, max_len=args.max_len,
                  seed=args.seed, paged=args.paged, page_size=args.page_size,
+                 chunk_tokens=args.chunk_tokens or None,
+                 spec=SpecConfig(k=args.spec_k) if args.spec else None,
                  device=device)
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab_size,
                           size=args.prefix_len).astype(np.int32)
-    rng.integers(0, cfg.vocab_size, size=8)  # the reference's spec motif
+    motif = rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
     for uid in range(args.requests):
         plen = int(rng.integers(4, min(64, args.max_len // 2)))
-        prompt = rng.integers(0, cfg.vocab_size, size=plen).astype(np.int32)
+        if args.spec:
+            # Repetitive prompts the ngram draft can extend.
+            prompt = np.tile(motif, plen // len(motif) + 1)[:plen]
+        else:
+            prompt = rng.integers(0, cfg.vocab_size,
+                                  size=plen).astype(np.int32)
         if args.prefix_len:
             prompt = np.concatenate([shared, prompt])
         eng.submit(Request(uid=uid, prompt=prompt,
@@ -94,8 +118,18 @@ def main(argv=None):
           f"{percentile(lats, 95):.2f}s | ttft p50 "
           f"{percentile(ttfts, 50):.2f}s p95 {percentile(ttfts, 95):.2f}s | "
           f"steps {eng.steps} | host transfers {eng.host_transfers}")
+    st = eng.stats()
+    if args.chunk_tokens:
+        print(f"chunked: {eng.chunk_waves} chunk waves "
+              f"(chunk_tokens={args.chunk_tokens})")
+    if args.spec:
+        print(f"spec: k={args.spec_k} accept rate "
+              f"{st['spec_accept_rate']:.1%} ({int(st['spec_accepted'])}/"
+              f"{int(st['spec_proposed'])} drafts), "
+              f"{st['spec_tokens_per_step']:.2f} emitted tokens/step")
+        if st["spec_proposed"] <= 0:
+            return 1
     if args.paged:
-        st = eng.stats()
         conserved = eng.pool.conserved()
         print(f"paged: hit rate {st['radix_hit_rate']:.1%} "
               f"({int(st['radix_hits'])} hits), pool "

@@ -9,8 +9,12 @@ cache (:class:`PagedKVCache`, DESIGN.md §8) single-token decode runs the
 fused split-K kernel K4 (``kernels/paged_attn``) over the table's
 KV-extent prefix; prefill, and decode with ``fused=False``, read the
 rows' dense view through the page gather K6 (``kernels/paged``) and attend
-with :func:`decode_attention`. The speculative chain-verify branch comes
-with the speculative-decoding slice.
+with :func:`decode_attention`. The speculative chain verify (DESIGN.md
+§12, ``spec_verify``) writes a (B, K+1) chain at once: on a paged cache K4
+runs over B·(K+1) flattened rows that share each slot's table, with
+per-row lengths; on the dense cache the chain lands through
+:func:`scatter_rows`, which drops writes past the row instead of clamping
+the slab onto committed positions, and attends one chain column at a time.
 
 Caches are updated in place (``cache_update``, ``paged_write``): the
 reference returns new ones, but every caller here drops the old one, and
@@ -110,6 +114,26 @@ def fused_paged_ok(mask: MaskSpec, seq: int) -> bool:
     causal mask; anything else takes the gather + softmax composition."""
     return (seq == 1 and mask.causal and mask.window is None
             and not mask.prefix_len)
+
+
+def spec_verify_ok(mask: MaskSpec) -> bool:
+    """The chain verify rides the fused kernel by flattening the (B, K+1)
+    query chain into B·(K+1) independent rows with per-row lengths: sound
+    only under the plain causal mask, the boundary of ``fused_paged_ok``."""
+    return mask.causal and mask.window is None and not mask.prefix_len
+
+
+def verify_rows(pt: Tensor, positions: Tensor, page: int
+                ) -> tuple[Tensor, Tensor]:
+    """The chain verify's kernel rows: each slot's table repeated once per
+    chain position, and row lengths ``pos + 1`` clamped to the table's
+    extent (an overhanging row near the cache end is computed, never
+    emitted). positions (B, S); returns (B·S, T) and (B·S,) int32."""
+    s = positions.shape[1]
+    ptf = pt.repeat_interleave(s, dim=0)
+    row_len = torch.clamp_max(positions.reshape(-1).to(torch.int32) + 1,
+                              pt.shape[1] * page)
+    return ptf, row_len
 
 
 def _capped_pt(page_table: Tensor, page: int, kv_cap: Optional[int]
@@ -235,6 +259,32 @@ def slab_write(buf: Tensor, new: Tensor, positions: Tensor) -> Tensor:
     return buf
 
 
+def scatter_rows(buf: Tensor, new: Tensor, positions: Tensor) -> Tensor:
+    """Write ``new (B, S, ...)`` into ``buf (B, S_max, ...)`` at the
+    positions ``positions (B, S)``, in place, dropping writes past the row:
+    the chain-verify write, where :func:`slab_write` would clamp the slab's
+    start and overwrite committed positions when a chain overhangs
+    ``S_max``. Each row's positions are consecutive (a chain), so its
+    dropped writes are a suffix; they are aimed at the row's last position
+    with the value that position receives anyway (the chain's own write
+    there, or what it holds), which keeps every index write
+    deterministic without a device sync."""
+    b, s = new.shape[:2]
+    s_max = buf.shape[1]
+    pos = positions.to(torch.int64)
+    j = torch.arange(s, device=buf.device)[None, :]
+    rows = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+    ok = pos < s_max
+    n_ok = ok.sum(dim=1, keepdim=True)
+    col = torch.clamp_max(pos, s_max - 1)
+    src = torch.where(ok, j, torch.clamp_min(n_ok - 1, 0))
+    shape = (b, s) + (1,) * (new.ndim - 2)
+    val = torch.where((ok | (n_ok > 0)).reshape(shape),
+                      new[rows, src].to(buf.dtype), buf[rows, col])
+    buf[rows, col] = val
+    return buf
+
+
 def cache_update(cache: KVCache, k_new: Tensor, v_new: Tensor,
                  positions: Tensor) -> KVCache:
     """Write (B, Sq, Hkv, D) K/V slabs at per-row start ``positions``
@@ -277,13 +327,14 @@ def attention_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
                     *, mask: MaskSpec, positions: Tensor,
                     cache: Optional[KVCache | PagedKVCache],
                     lengths: Optional[Tensor], kv_cap: Optional[int] = None,
-                    fused: bool = True
+                    fused: bool = True, spec_verify: bool = False
                     ) -> tuple[Tensor, Optional[KVCache | PagedKVCache]]:
     """Self-attention: project, qk-norm, rope, then either write the new
     K/V at ``positions[:, 0]`` and attend over the cache (``lengths`` (B,)
     are the post-update cache lengths), or, with no cache, attend over the
     sequence itself blockwise (training). On a paged cache, single-token
-    decode with ``fused`` runs K4 over the table's ``kv_cap`` prefix."""
+    decode with ``fused`` runs K4 over the table's ``kv_cap`` prefix, and
+    so does the chain verify (``spec_verify``), over B·S rows."""
     q = dense(x, params["wq"], cfg)   # (B, S, H, hd)
     k = dense(x, params["wk"], cfg)
     v = dense(x, params["wv"], cfg)
@@ -300,10 +351,29 @@ def attention_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig,
             pt = _capped_pt(cache.pt, cache.k.shape[1], kv_cap)
             out = paged_decode_attention(q[:, 0], cache.k, cache.v, pt,
                                          lengths)[:, None]
+        elif fused and spec_verify and spec_verify_ok(mask):
+            # Row j of slot b is the single-token decode of chain position
+            # j: the slot's table, length pos + 1.
+            b, s = q.shape[:2]
+            page = cache.k.shape[1]
+            ptf, row_len = verify_rows(_capped_pt(cache.pt, page, kv_cap),
+                                       positions, page)
+            out = paged_decode_attention(q.reshape((b * s,) + q.shape[2:]),
+                                         cache.k, cache.v, ptf, row_len)
+            out = out.reshape((b, s) + out.shape[1:])
         else:
             out = decode_attention(q, paged_view(cache.k, cache.pt),
                                    paged_view(cache.v, cache.pt),
                                    positions, lengths, mask)
+    elif cache is not None and spec_verify and q.shape[1] > 1:
+        scatter_rows(cache.k, k, positions)
+        scatter_rows(cache.v, v, positions)
+        # One chain column at a time, as a decode step attends: a batched
+        # product's summation order depends on its number of query rows.
+        out = torch.cat([decode_attention(q[:, j:j + 1], cache.k, cache.v,
+                                          positions[:, j:j + 1], lengths,
+                                          mask)
+                         for j in range(q.shape[1])], dim=1)
     elif cache is not None:
         cache = cache_update(cache, k, v, positions[:, 0])
         out = decode_attention(q, cache.k, cache.v, positions, lengths, mask)

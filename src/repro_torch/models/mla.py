@@ -17,12 +17,16 @@ in the latent space.
   split-K kernel K5 (``kernels/paged_attn.paged_decode_mla``) over the
   table's KV-extent prefix, anything else reads the rows' dense view
   through the page gather K6 and attends as on the dense cache.
+- Chain verify (``spec_verify``, DESIGN.md §12): a (B, K+1) chain of
+  queries at once; on the paged pool K5 runs over B·(K+1) flattened rows
+  that share each slot's table, with per-row lengths; on the dense cache
+  the chain's rows land through ``scatter_rows`` (writes past the row
+  drop) and attend one chain column at a time.
 
 The absorption ``q_lat = q_nope · W_k_b`` and the output up-projection
 ``o_lat · W_v_b`` stay ``torch.einsum`` in float32, as the reference leaves
 them to XLA. Every projection goes through ``dense``/``dense_in``
-(TimeFloats arithmetic when enabled). Caches are updated in place. The
-speculative chain-verify branch comes with the speculative-decoding slice.
+(TimeFloats arithmetic when enabled). Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -36,7 +40,9 @@ from repro_torch.kernels.paged_attn import paged_decode_mla
 from repro_torch.models.attention import (NEG, MaskSpec, _capped_pt,
                                           blockwise_attention, fused_paged_ok,
                                           mask_allowed, paged_view,
-                                          paged_write, slab_write)
+                                          paged_write, scatter_rows,
+                                          slab_write, spec_verify_ok,
+                                          verify_rows)
 from repro_torch.models.common import ParamSpec, dense, dense_in, rms_norm, rope
 
 Tensor = torch.Tensor
@@ -117,10 +123,8 @@ def mla_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig, *,
     the absorbed path: write the new latent/rope rows at
     ``positions[:, 0]`` and attend over the cache (``lengths`` (B,) are the
     post-update lengths). On a paged cache, single-token decode with
-    ``fused`` runs K5 over the table's ``kv_cap`` prefix."""
-    if spec_verify:
-        raise NotImplementedError("MLA chain verify comes with the "
-                                  "speculative-decoding slice")
+    ``fused`` runs K5 over the table's ``kv_cap`` prefix, and so does the
+    chain verify (``spec_verify``), over B·S rows."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -158,22 +162,54 @@ def mla_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig, *,
                                      cache.k_rope, pt, lengths,
                                      scale=scale)[:, None]
             return _up_project(o_lat, wv_b, params, cfg), cache
+        if fused and spec_verify and spec_verify_ok(mask):
+            page = cache.c_kv.shape[1]
+            ptf, row_len = verify_rows(_capped_pt(cache.pt, page, kv_cap),
+                                       positions, page)
+            o_lat = paged_decode_mla(
+                q_lat.reshape((b * s,) + q_lat.shape[2:]),
+                q_rope.reshape((b * s,) + q_rope.shape[2:]), cache.c_kv,
+                cache.k_rope, ptf, row_len, scale=scale)
+            o_lat = o_lat.reshape((b, s) + o_lat.shape[1:])
+            return _up_project(o_lat, wv_b, params, cfg), cache
         c_kv_all = paged_view(cache.c_kv, cache.pt)      # (B, T*page, C)
         k_rope_all = paged_view(cache.k_rope, cache.pt)
     else:
-        slab_write(cache.c_kv, c_kv, write_pos)
-        slab_write(cache.k_rope, k_rope, write_pos)
+        if spec_verify and s > 1:
+            scatter_rows(cache.c_kv, c_kv, positions)
+            scatter_rows(cache.k_rope, k_rope, positions)
+        else:
+            slab_write(cache.c_kv, c_kv, write_pos)
+            slab_write(cache.k_rope, k_rope, write_pos)
         c_kv_all, k_rope_all = cache.c_kv, cache.k_rope
     ckf = c_kv_all.to(torch.float32)
+    krf = k_rope_all.to(torch.float32)
+    if spec_verify and s > 1:
+        # One chain column at a time, as a decode step attends: a batched
+        # product's summation order depends on its number of query rows.
+        o_lat = torch.cat([_latent_attention(
+            q_lat[:, j:j + 1], q_rope[:, j:j + 1], ckf, krf,
+            positions[:, j:j + 1], lengths, mask, scale) for j in range(s)],
+            dim=1)
+    else:
+        o_lat = _latent_attention(q_lat, q_rope, ckf, krf, positions,
+                                  lengths, mask, scale)
+    return _up_project(o_lat, wv_b, params, cfg), cache
+
+
+def _latent_attention(q_lat: Tensor, q_rope: Tensor, ckf: Tensor,
+                      krf: Tensor, positions: Tensor, lengths: Tensor,
+                      mask: MaskSpec, scale: float) -> Tensor:
+    """Masked softmax attention in the latent space: queries (B, S, H, C)
+    and (B, S, H, R) against the f32 latents (B, S_max, C) and rope keys
+    (B, S_max, R); returns (B, S, H, C)."""
     s_lat = torch.einsum("bshc,bjc->bhsj", q_lat, ckf)
-    s_rope = torch.einsum("bshr,bjr->bhsj", q_rope.to(torch.float32),
-                          k_rope_all.to(torch.float32))
+    s_rope = torch.einsum("bshr,bjr->bhsj", q_rope.to(torch.float32), krf)
     scores = (s_lat + s_rope) * scale  # (B, H, S, S_max)
-    kv_pos = torch.arange(c_kv_all.shape[1], device=x.device)
+    kv_pos = torch.arange(ckf.shape[1], device=ckf.device)
     ok = mask_allowed(positions[:, :, None], kv_pos[None, None, :], mask)
     ok = (ok & (kv_pos[None, None, :] < lengths[:, None, None]))[:, None]
     scores = torch.where(ok, scores, NEG)
     e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     p = torch.where(ok, e / e.sum(dim=-1, keepdim=True), 0.0)
-    o_lat = torch.einsum("bhsj,bjc->bshc", p, ckf)
-    return _up_project(o_lat, wv_b, params, cfg), cache
+    return torch.einsum("bhsj,bjc->bshc", p, ckf)

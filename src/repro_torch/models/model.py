@@ -4,7 +4,9 @@ dense layers of the ``moe`` family (MLA attention, FFN width
 ``moe.dense_d_ff``; deepseek-v3 cut to its first three layers). Parameters,
 the layer loop, the full-sequence training forward and loss, the slot
 cache, the paged cache (DESIGN.md §8) and the serving steps ``prefill`` /
-``decode_step`` / ``prefill_into_slots`` / ``prefill_into_pages``.
+``decode_step`` / ``verify_step`` (the speculative chain verify, DESIGN.md
+§12) / ``prefill_into_slots`` (resumable at per-row offsets for chunked
+prefill, DESIGN.md §10) / ``prefill_into_pages``.
 
 The reference stacks layers and scans them; here the parameters hold a list
 of per-layer dicts (``params["layers"]``) and a Python loop walks it. Its
@@ -75,13 +77,14 @@ def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
 def block_apply(params: Dict[str, Any], x: Tensor, cfg: ModelConfig, *,
                 positions: Tensor, cache: Optional[Cache],
                 lengths: Optional[Tensor], kv_cap: Optional[int] = None,
-                fused_paged: bool = True
+                fused_paged: bool = True, spec_verify: bool = False
                 ) -> tuple[Tensor, Optional[Cache]]:
     h = norm_apply(params["norm1"], x, cfg)
     mixer = mla_mod.mla_apply if _uses_mla(cfg) else attn_mod.attention_apply
     y, cache = mixer(
         params["mixer"], h, cfg, mask=default_mask(cfg), positions=positions,
-        cache=cache, lengths=lengths, kv_cap=kv_cap, fused=fused_paged)
+        cache=cache, lengths=lengths, kv_cap=kv_cap, fused=fused_paged,
+        spec_verify=spec_verify)
     x = x + y
     h2 = norm_apply(params["norm2"], x, cfg)
     return x + mlp_apply(params["ffn"], h2, cfg), cache
@@ -128,13 +131,13 @@ def _head(params: Tree, x: Tensor, cfg: ModelConfig) -> Tensor:
 def _run_layers(params: Tree, x: Tensor, cfg: ModelConfig, *,
                 positions: Tensor, caches: List[Cache],
                 lengths: Tensor, kv_cap: Optional[int] = None,
-                fused_paged: bool = True
+                fused_paged: bool = True, spec_verify: bool = False
                 ) -> tuple[Tensor, List[Cache]]:
     new = []
     for lp, lc in zip(params["layers"], caches):
         x, lc = block_apply(lp, x, cfg, positions=positions, cache=lc,
                             lengths=lengths, kv_cap=kv_cap,
-                            fused_paged=fused_paged)
+                            fused_paged=fused_paged, spec_verify=spec_verify)
         new.append(lc)
     return x, new
 
@@ -311,6 +314,38 @@ def decode_step(params: Tree, cache: ModelCache, tokens: Tensor,
     return _head(params, x, cfg), ModelCache(tuple(layers), lengths)
 
 
+def verify_step(params: Tree, cache: ModelCache, tokens: Tensor,
+                cfg: ModelConfig, *, kv_cap: Optional[int] = None,
+                fused_paged: bool = True) -> tuple[Tensor, ModelCache]:
+    """Speculative chain verify (DESIGN.md §12). ``tokens (B, S)`` is the
+    pending token and S-1 draft tokens; they are written at positions
+    ``cache.lengths .. lengths+S-1`` and all S next-token logits come back
+    ``(B, S, V)``. Column j is the decode step after consuming the chain's
+    first j+1 tokens; the caller rolls ``lengths`` back to the accepted
+    prefix, which erases the rejected suffix (masked now, overwritten by
+    the next write at the same positions).
+
+    On a paged cache attention runs K4 (GQA) or K5 (MLA) over B·S rows
+    that share each slot's table (``kv_cap`` must cover ``lengths + S``);
+    writes past the table go to the trash page. On the dense cache writes
+    past ``max_len`` drop (``attention.scatter_rows``)."""
+    if not paged_supported(cfg):
+        raise NotImplementedError(f"verify_step: {cfg.name} is not an "
+                                  "attention family")
+    s = tokens.shape[1]
+    x = embed_tokens(params, tokens, cfg)
+    positions = (cache.lengths[:, None]
+                 + torch.arange(s, dtype=cache.lengths.dtype,
+                                device=x.device)[None, :])
+    lengths = cache.lengths + s
+    x, layers = _run_layers(params, x, cfg, positions=positions,
+                            caches=list(cache.layers), lengths=lengths,
+                            kv_cap=kv_cap, fused_paged=fused_paged,
+                            spec_verify=True)
+    x = norm_apply(params["final_norm"], x, cfg)
+    return _head(params, x, cfg), ModelCache(tuple(layers), lengths)
+
+
 def prefill(params: Tree, tokens: Tensor, cfg: ModelConfig,
             cache: ModelCache, *, lengths: Tensor | None = None,
             offsets: Tensor | None = None) -> tuple[Tensor, ModelCache]:
@@ -363,15 +398,40 @@ def scatter_cache_rows(full: ModelCache, rows: ModelCache,
     return full
 
 
+def gather_cache_rows(cache: ModelCache, slot_ids: np.ndarray
+                      ) -> ModelCache:
+    """Copy per-slot rows out of the slot cache, the inverse of
+    :func:`scatter_cache_rows`. Out-of-range ids clip to row 0: those are
+    padding rows, which the scatter later drops and the chunked prefill
+    runs at length 0, so the copied content is never attended."""
+    slots = cache.lengths.shape[0]
+    ids = torch.as_tensor(np.clip(np.asarray(slot_ids, np.int64), 0,
+                                  slots - 1), device=cache.lengths.device)
+    layers = tuple(type(lc)(*(buf[ids] for buf in lc))
+                   for lc in cache.layers)
+    return ModelCache(layers=layers, lengths=cache.lengths[ids])
+
+
 def prefill_into_slots(params: Tree, tokens: Tensor, cfg: ModelConfig,
                        cache: ModelCache, lengths: Tensor,
-                       slot_ids: np.ndarray, *, max_len: int
+                       slot_ids: np.ndarray, *, max_len: int,
+                       offsets: Optional[Tensor] = None
                        ) -> tuple[Tensor, ModelCache]:
     """Bucketed batched prefill straight into slot rows: one ragged
     ``prefill`` on a throwaway cache, whose rows (and lengths) then land in
-    ``cache`` at ``slot_ids``; out-of-range ids are padding rows."""
-    scratch = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
-    logits, rows = prefill(params, tokens, cfg, scratch, lengths=lengths)
+    ``cache`` at ``slot_ids``; out-of-range ids are padding rows.
+
+    ``offsets`` (B,) makes it resumable (the chunked-prefill path, DESIGN.md
+    §10): the slots' current rows are copied out instead of a zeroed
+    scratch, row r's tokens land at absolute positions ``offsets[r] +
+    [0, S)`` on top of the K/V earlier chunks wrote, and the rows (with
+    lengths ``lengths``) are scattered back."""
+    if offsets is None:
+        scratch = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    else:
+        scratch = gather_cache_rows(cache, slot_ids)
+    logits, rows = prefill(params, tokens, cfg, scratch, lengths=lengths,
+                           offsets=offsets)
     return logits, scatter_cache_rows(cache, rows, slot_ids)
 
 

@@ -15,6 +15,29 @@ pool with radix prefix reuse (DESIGN.md §8).
 - **One device->host copy per step** — the new tokens and done masks of
   every wave and of the decode travel in a single copy, counted in
   ``host_transfers``.
+- **Chunked prefill** (``chunk_tokens=C``, DESIGN.md §10): a prompt whose
+  non-cached suffix is longer than C is prefilled C tokens at a time, at
+  most ONE fixed-shape ``(slots, C)`` chunk wave per step beside the
+  decode, so decoding slots never wait more than one chunk behind a long
+  prompt. A mid-prefill slot's progress is its ``cache.lengths`` entry
+  (each chunk resumes at ``Request.prefilled`` through the models'
+  offsets contract); its ``active`` mask stays False, so decode effects
+  never persist for it; only a request's final chunk samples and admits.
+  On a paged engine the radix insert waits for the final chunk (an insert
+  at admission would let another request borrow unwritten pages). A
+  prompt whose suffix fits one chunk rides the classic bucketed wave.
+- **Speculative decoding** (``spec=SpecConfig(...)``, DESIGN.md §12,
+  greedy requests only): the decode becomes draft -> verify -> accept over
+  the K+1 chain positions [pending, d_1..d_K] of every slot. The draft is
+  the host prompt-lookup (``ngram``) or a draft model's K+1 decode steps
+  against a dense draft cache mirroring the admissions (``model``, dense
+  non-chunked engines). ``model.verify_step`` scores the chain in one
+  call (K4/K5 over slots·(K+1) rows on a paged engine), the same sampler
+  (K3) picks every column, ``spec.chain_accept`` keeps the longest
+  accepted prefix plus the bonus token, and ``lengths`` roll back to it.
+  On a paged engine the overhang past a slot's reserved pages lands in
+  per-step scratch pages (no eviction; the trash page when the pool is
+  short), released after the step.
 
 - **Admission** goes through ``serve/sched.Scheduler`` (FCFS with a
   bounded skip-ahead past requests that cannot reserve pages and a
@@ -40,14 +63,14 @@ request's uid) and ``counter`` (0 for the prefill token, then one more per
 decode step) that the engine state carries, so tempered streams match the
 reference's token for token as greedy ones do.
 
-Later slices: chunked prefill, speculative decoding, the cost scheduler,
-tracing, health and energy telemetry, ``compile_cache_stats``.
+Not ported: the cost scheduler, tracing, metrics, health and the hardware
+twin's energy hooks, ``compile_cache_stats`` (the port compiles nothing).
 """
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Deque, Dict, List, NamedTuple, Optional
+from typing import Deque, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +83,7 @@ from repro_torch.serve.kvpool import PagePool
 from repro_torch.serve.radix import RadixCache
 from repro_torch.serve.request import Finished, Request, percentile
 from repro_torch.serve.sched import Scheduler
+from repro_torch.serve.spec import SpecConfig, chain_accept, propose_ngram
 
 Tensor = torch.Tensor
 
@@ -113,13 +137,16 @@ def _admit_update(state: EngineState, cache: model_lib.ModelCache,
 class Engine:
     """Fixed-slot continuous batching with a fused device step, FCFS
     admission, and optionally the paged cache pool with radix prefix reuse
-    (``paged``). ``device`` defaults to the card."""
+    (``paged``), chunked prefill (``chunk_tokens``) and speculative
+    decoding (``spec``). ``device`` defaults to the card."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
                  max_len: int = 512, eos_id: Optional[int] = None,
                  seed: int = 0, min_bucket: int = 8, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 fused_decode: Optional[bool] = None, device="cuda"):
+                 fused_decode: Optional[bool] = None,
+                 chunk_tokens: Optional[int] = None,
+                 spec: Optional[SpecConfig] = None, device="cuda"):
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -132,6 +159,31 @@ class Engine:
         # Fused split-K paged decode: on for paged engines unless asked
         # off; dense engines have no paged kernel to fuse.
         self.fused_decode = paged if fused_decode is None else fused_decode
+        self.spec = spec
+        self._spec_model = spec is not None and spec.draft == "model"
+        if spec is not None and not model_lib.paged_supported(cfg):
+            raise ValueError(f"speculative decoding: {cfg.name} is not an "
+                             "attention family")
+        if self._spec_model:
+            dcfg = spec.draft_cfg
+            if paged or chunk_tokens:
+                raise ValueError("draft='model' mirrors whole-prompt "
+                                 "admission waves: dense, non-chunked "
+                                 "engines only")
+            if not model_lib.paged_supported(dcfg):
+                raise ValueError("the draft model must be an attention "
+                                 "family")
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share the vocab")
+        self.chunk_tokens = int(chunk_tokens) if chunk_tokens else None
+        if self.chunk_tokens is not None:
+            c = self.chunk_tokens
+            if c & (c - 1) or not c < max_len:
+                raise ValueError(f"chunk_tokens {c}: a power of two below "
+                                 f"max_len {max_len}")
+            if not model_lib.paged_supported(cfg):
+                raise ValueError(f"chunked prefill: {cfg.name} is not an "
+                                 "attention family")
         if paged:
             if not model_lib.paged_supported(cfg):
                 raise ValueError(f"paged cache: {cfg.name} is not a "
@@ -155,7 +207,7 @@ class Engine:
                 num_pages=num_pages, device=self.device)
         else:
             cache = model_lib.init_cache(cfg, slots, max_len, self.device)
-        self.sched = Scheduler("fcfs")
+        self.sched = Scheduler("fcfs", chunk_tokens=self.chunk_tokens)
         z_i = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self.state = EngineState(
             cache=cache,
@@ -165,10 +217,25 @@ class Engine:
             temp=torch.zeros((slots,), dtype=torch.float32,
                              device=self.device),
             remaining=z_i, counter=z_i.clone(), tag=z_i.clone())
+        # The draft model's dense cache: as many rows as the target's, so
+        # its calls run at the target's shapes.
+        self._spec_dcache = (model_lib.init_cache(
+            spec.draft_cfg, slots, max_len, self.device)
+            if self._spec_model else None)
+        # Per-slot [uid, buffer, filled] history for the ngram draft, so a
+        # step appends only the tokens emitted since the last one.
+        self._spec_hist: Dict[int, list] = {}
+        self._spec_proposed = 0    # draft tokens offered to the verifier
+        self._spec_accepted = 0    # draft tokens accepted (bonus excluded)
         self.active: Dict[int, Request] = {}     # slot -> request (mirror)
+        self._chunking: Dict[int, Request] = {}  # slot -> mid-prefill req
         self.queue: Deque[Request] = deque()
         self.steps = 0
         self.host_transfers = 0
+        self.chunk_waves = 0
+        # (uid, offset, n_tokens) per chunk-wave row: the offsets tile each
+        # chunked prompt once, in order.
+        self.chunk_log: List[Tuple[int, int, int]] = []
         self._finished_count = 0
         self._new_tokens = 0
         self._latencies: List[float] = []
@@ -206,12 +273,75 @@ class Engine:
             logits, cache = model_lib.prefill_into_slots(
                 self.params, tok_t, self.cfg, self.state.cache, plen_t, ids,
                 max_len=self.max_len)
+        if self._spec_model:
+            # Mirror the wave into the draft cache; the pending token is
+            # the target's.
+            _, self._spec_dcache = model_lib.prefill_into_slots(
+                self.spec.draft_params, tok_t, self.spec.draft_cfg,
+                self._spec_dcache, plen_t, ids, max_len=self.max_len)
         self.state, out = _admit_update(
             self.state, cache, logits, ids, torch.as_tensor(temps, device=dev),
             torch.as_tensor(budgets, device=dev),
             torch.as_tensor(tags, device=dev), key=self.key, eos=self.eos_id,
             slots=slots)
         return out
+
+    def _run_chunk_wave(self):
+        """Advance every mid-prefill slot by one chunk in ONE fixed-shape
+        ``(slots, chunk_tokens)`` wave. Final-chunk rows sample their first
+        token and join ``active``; mid-chunk rows admit nothing
+        (``admit_ids`` holds the drop sentinel there). Returns the rows
+        that admitted, [(row, slot, request)], and the wave's outputs."""
+        C, slots = self.chunk_tokens, self.slots
+        tokens = np.zeros((slots, C), np.int32)
+        tots = np.zeros((slots,), np.int32)
+        offs = np.zeros((slots,), np.int32)
+        wids = np.full((slots,), slots, np.int32)   # dummy rows: drop
+        aids = np.full((slots,), slots, np.int32)   # mid-chunk rows: drop
+        temps = np.zeros((slots,), np.float32)
+        budgets = np.ones((slots,), np.int32)
+        tags = np.zeros((slots,), np.int32)
+        finals = []
+        for r, (slot, req) in enumerate(sorted(self._chunking.items())):
+            p = np.asarray(req.prompt)
+            start = req.prefilled
+            n = min(C, len(p) - start)
+            tokens[r, :n] = p[start:start + n]
+            offs[r] = start
+            tots[r] = start + n
+            wids[r] = slot
+            req.prefilled = start + n
+            self.chunk_log.append((req.uid, start, n))
+            if req.prefilled == len(p):
+                aids[r] = slot
+                temps[r] = req.temperature
+                budgets[r] = req.max_new_tokens
+                tags[r] = req.uid & 0x7FFFFFFF
+                finals.append((r, slot, req))
+        dev = self.device
+        tok_t = torch.as_tensor(tokens, device=dev)
+        tot_t = torch.as_tensor(tots, device=dev)
+        off_t = torch.as_tensor(offs, device=dev)
+        if self.paged:
+            logits, cache = model_lib.prefill_into_pages(
+                self.params, tok_t, self.cfg, self.state.cache, tot_t, off_t,
+                wids)
+        else:
+            logits, cache = model_lib.prefill_into_slots(
+                self.params, tok_t, self.cfg, self.state.cache, tot_t, wids,
+                max_len=self.max_len, offsets=off_t)
+        self.state, out = _admit_update(
+            self.state, cache, logits, aids, torch.as_tensor(temps, device=dev),
+            torch.as_tensor(budgets, device=dev),
+            torch.as_tensor(tags, device=dev), key=self.key, eos=self.eos_id,
+            slots=slots)
+        self.chunk_waves += 1
+        for _r, slot, req in finals:
+            del self._chunking[slot]
+            self.active[slot] = req
+            if self.paged:
+                self._insert_radix(req, self._slot_pages[slot])
+        return finals, out
 
     def _decode_and_sample(self):
         st = self.state
@@ -236,20 +366,163 @@ class Engine:
             tag=st.tag)
         return tok, done
 
+    def _draft_chain(self) -> Tensor:
+        """The draft model's chain for every slot, (slots, K): K+1 greedy
+        decode steps on the draft cache. K+1, not K: on full acceptance the
+        target commits rows n0..n0+K, so the draft cache must hold d_K's
+        row too before the lengths are synced."""
+        st, k = self.state, self.spec.k
+        dc, tok, drafts = self._spec_dcache, st.last_token, []
+        for _ in range(k + 1):
+            dlg, dc = model_lib.decode_step(self.spec.draft_params, dc, tok,
+                                            self.spec.draft_cfg)
+            nt = sample_tokens(dlg[:, 0], st.temp, self.key, st.tag,
+                               st.counter)
+            tok = nt[:, None]
+            drafts.append(nt)
+        self._spec_dcache = dc
+        return torch.stack(drafts[:k], dim=1)
+
+    def _verify_and_accept(self):
+        """The speculative replacement for :meth:`_decode_and_sample`: the
+        target's chain verify over [pending, d_1..d_K], every column
+        sampled by the same sampler as the non-spec step (greedy rows take
+        the lowest-index argmax), the longest accepted prefix kept with the
+        non-spec done predicate per emission, and ``lengths`` rolled back to
+        it. Returns (tokens (slots, K+1), emitted counts, done)."""
+        st = self.state
+        if self._spec_model:
+            draft = self._draft_chain()
+        else:
+            draft = torch.as_tensor(self._build_drafts(), device=self.device)
+        tokens = torch.cat([st.last_token, draft], dim=1)
+        logits, cache = model_lib.verify_step(
+            self.params, st.cache, tokens, self.cfg,
+            kv_cap=self._decode_cap(), fused_paged=self.fused_decode)
+        b, s, v = logits.shape
+        ctrs = (st.counter[:, None] + torch.arange(
+            s, dtype=torch.int32, device=self.device)[None, :]).reshape(-1)
+        greedy = sample_tokens(logits.reshape(b * s, v),
+                               st.temp.repeat_interleave(s), self.key,
+                               st.tag.repeat_interleave(s), ctrs
+                               ).reshape(b, s)
+        n0 = st.cache.lengths
+        _emit, e, stop = chain_accept(greedy, draft, st.remaining, n0,
+                                      max_len=self.max_len, eos=self.eos_id)
+        done = st.active & stop
+        e_act = torch.where(st.active, e, 0)
+        last = torch.gather(greedy, 1, (e - 1).to(torch.int64)[:, None])
+        lengths = torch.where(st.active, n0 + e, cache.lengths)
+        self.state = EngineState(
+            cache=cache._replace(lengths=lengths),
+            last_token=torch.where(st.active[:, None], last, st.last_token),
+            active=st.active & ~done,
+            temp=st.temp,
+            remaining=st.remaining - e_act,
+            counter=st.counter + e_act,
+            tag=st.tag)
+        if self._spec_model:
+            # The draft cache's committed extent follows the target's.
+            self._spec_dcache = self._spec_dcache._replace(
+                lengths=lengths.clone())
+        return greedy, e_act, done
+
     def _decode_cap(self) -> Optional[int]:
         """KV-extent cap (tokens) for this step's fused paged decode, or
         None. The largest extent any active slot touches this step is
         ``prompt + generated`` (the decode writes at its last position),
-        rounded up to a pow2 page count. Pages past a row's length are
-        masked, so the cap changes nothing on any live row."""
+        plus the draft depth for a chain verify, rounded up to a pow2 page
+        count. Pages past a row's length are masked, so the cap changes
+        nothing on any live row; mid-prefill slots do not count (their
+        decode row is discarded)."""
         if not (self.paged and self.fused_decode):
             return None
         need = 1
         for req in self.active.values():
             need = max(need, len(req.prompt) + max(len(req.generated), 1))
+        if self.spec is not None:
+            need += self.spec.k
         pages = -(-need // self.page_size)
         t = 1 << max(pages - 1, 0).bit_length()
         return min(t, self.n_ptab) * self.page_size
+
+    # -- speculative drafts and scratch pages --------------------------------
+    def _build_drafts(self) -> np.ndarray:
+        """Host prompt-lookup proposals, (slots, K), for every active slot;
+        idle rows stay zero (their verify is masked by ``active``).
+        ``generated`` already holds the pending token, so the proposal
+        continues the chain the verify scores."""
+        k = self.spec.k
+        draft = np.zeros((self.slots, k), np.int32)
+        for slot, req in self.active.items():
+            n_prompt = len(req.prompt)
+            total = n_prompt + len(req.generated)
+            ent = self._spec_hist.get(slot)
+            if ent is None or ent[0] != req.uid or ent[2] > total:
+                buf = np.empty((total + req.max_new_tokens + k + 8,),
+                               np.int64)
+                buf[:n_prompt] = np.asarray(req.prompt,
+                                            np.int64).reshape(-1)
+                ent = self._spec_hist[slot] = [req.uid, buf, n_prompt]
+            buf, filled = ent[1], ent[2]
+            if total > len(buf):
+                buf = np.concatenate([buf, np.empty_like(buf)])
+                ent[1] = buf
+            if total > filled:
+                buf[filled:total] = req.generated[filled - n_prompt:]
+                ent[2] = total
+            draft[slot] = propose_ngram(buf[:total], k,
+                                        max_n=self.spec.ngram_max)
+        return draft
+
+    def _attach_scratch_pages(self) -> Dict[int, List[int]]:
+        """Back the chain's overhang with per-step scratch pages: the
+        admission reservation covers every position the accept rule can
+        commit, but the verify writes through ``n0 + K``. The uncovered
+        tail of each slot is allocated without eviction (scratch never
+        takes the radix cache's pages); on shortfall the table keeps
+        pointing at the trash page, which is correct since overhang rows
+        are never read back as committed state. Returns {slot: pages}."""
+        k, ps = self.spec.k, self.page_size
+        ids: List[int] = []
+        rows: List[np.ndarray] = []
+        scratch: Dict[int, List[int]] = {}
+        for slot, req in self.active.items():
+            owned = self._slot_pages.get(slot)
+            if not owned:
+                continue
+            n0 = len(req.prompt) + max(len(req.generated), 1) - 1
+            need = min(n0 + k, self.max_len - 1) // ps + 1
+            if need <= len(owned):
+                continue
+            extra = self.pool.alloc(need - len(owned))
+            if extra is None:
+                continue  # the trash page takes the overhang
+            scratch[slot] = extra
+            row = np.zeros((self.n_ptab,), np.int32)
+            row[: len(owned)] = owned
+            row[len(owned): len(owned) + len(extra)] = extra
+            ids.append(slot)
+            rows.append(row)
+        if ids:
+            model_lib.set_page_rows(self.state.cache,
+                                    np.asarray(ids, np.int32),
+                                    np.stack(rows))
+        return scratch
+
+    def _release_scratch_pages(self, scratch: Dict[int, List[int]]) -> None:
+        """Give this step's scratch pages back to the pool. The table rows
+        are reset first: a released page may be handed out before the next
+        step, and a stale entry would let the slot write into it."""
+        ids = np.asarray(sorted(scratch), np.int32)
+        rows = np.zeros((len(ids), self.n_ptab), np.int32)
+        for r, slot in enumerate(ids):
+            owned = self._slot_pages.get(int(slot), [])
+            rows[r, : len(owned)] = owned
+        model_lib.set_page_rows(self.state.cache, ids, rows)
+        for pages in scratch.values():
+            for p in pages:
+                self.pool.release(p)
 
     # -- paged bookkeeping ---------------------------------------------------
     def _try_reserve(self, req: Request):
@@ -296,15 +569,20 @@ class Engine:
             for p in self._slot_pages.pop(slot, []):
                 self.pool.release(p)
 
-    def _register_admit(self, slot: int, req: Request, skip: int,
-                        pages) -> None:
-        """Book an admitted paged request: its pages, the hit counters, and
-        its prompt's full pages indexed in the radix tree."""
+    def _count_admit(self, slot: int, req: Request, skip: int,
+                     pages) -> None:
+        """Book an admitted paged request: its pages and the hit
+        counters."""
         self._slot_pages[slot] = list(pages)
         self._prompt_tokens += len(req.prompt)
         self._prefix_tokens += skip
         if skip:
             self._prefix_hits += 1
+
+    def _insert_radix(self, req: Request, pages) -> None:
+        """Index the prompt's full pages in the radix tree. A chunked
+        admission inserts at its final chunk: only then has every page's
+        K/V been written."""
         n_full = len(req.prompt) // self.page_size
         if n_full:
             self.radix.insert(req.prompt[: n_full * self.page_size],
@@ -312,81 +590,133 @@ class Engine:
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, req: Request) -> None:
+        if self.spec is not None and req.temperature > 0.0:
+            raise ValueError("speculative decoding is greedy-only: the "
+                             "chain-accept rule replays argmax, not the "
+                             "tempered sampling stream")
         # Latency and TTFT are measured from submission, not construction.
         req.submit_t = time.monotonic()
+        req.prefilled = 0
         req.skipped = 0
         self.queue.append(req)
 
     def step(self) -> List[Finished]:
         """One engine step: scheduler admission into free slots (with page
-        reservation on a paged engine), one prefill wave per length
-        bucket, one fused decode_and_sample, and a single device->host
-        copy of the new tokens and done masks."""
+        reservation on a paged engine), at most one chunk wave and one
+        prefill wave per length bucket, one fused decode_and_sample (or
+        chain verify), and a single device->host copy of the new tokens
+        and done masks."""
         had_active = bool(self.active)
+        C = self.chunk_tokens
         tracker = self.sched.begin_step()
-        free = [i for i in range(self.slots) if i not in self.active]
+        if self._chunking:
+            # In-flight prefills always progress and outrank admissions.
+            cont = sum(min(C, len(r.prompt) - r.prefilled)
+                       for r in self._chunking.values())
+            tracker.spend(cont, self.sched.cost.prefill_pj(cont))
+        free = [i for i in range(self.slots)
+                if i not in self.active and i not in self._chunking]
         picks = self.sched.pick(self.queue, len(free), tracker,
                                 self._try_reserve if self.paged else None)
-        admits = []
+        admits, chunked = [], []
         for req, (skip, pages) in picks:
             assert len(req.prompt) < self.max_len, \
                 "prompt longer than cache"
-            admits.append((free.pop(0), req, skip, pages))
-        if self.paged and admits:
-            self._assign_page_tables(admits)
+            slot = free.pop(0)
+            if C is not None and len(req.prompt) - skip > C:
+                req.prefilled = skip
+                self._chunking[slot] = req
+                chunked.append((slot, req, skip, pages))
+            else:
+                admits.append((slot, req, skip, pages))
+        if self.paged and picks:
+            self._assign_page_tables(admits + chunked)
+            for slot, req, skip, pages in chunked:
+                self._count_admit(slot, req, skip, pages)
+        # waves: ([(row, slot, request) sampled], (tokens, done)).
+        waves = []
+        if self._chunking:
+            waves.append(self._run_chunk_wave())
         by_bucket: Dict[int, list] = {}
         for slot, req, skip, pages in admits:
             sb = bucket_for(len(req.prompt) - skip, self.max_len,
                             self.min_bucket)
             by_bucket.setdefault(sb, []).append((slot, req, skip, pages))
-        waves = []
         for sb in sorted(by_bucket):
             group = by_bucket[sb]
-            waves.append((group, self._prefill_wave(sb, group)))
+            waves.append(([(r, slot, req) for r, (slot, req, _s, _p)
+                           in enumerate(group)],
+                          self._prefill_wave(sb, group)))
             for slot, req, skip, pages in group:
                 self.active[slot] = req
                 if self.paged:
-                    self._register_admit(slot, req, skip, pages)
+                    self._count_admit(slot, req, skip, pages)
+                    self._insert_radix(req, pages)
         dec = None
-        sampled = [req for group, _ in waves for _, req, _, _ in group]
+        scratch = None
+        sampled = [req for rows, _ in waves for _, _, req in rows]
         if had_active or any(r.max_new_tokens > 1 for r in sampled):
             self.steps += 1
-            dec = self._decode_and_sample()
+            if self.spec is None:
+                dec = self._decode_and_sample()
+            else:
+                if self.paged:
+                    scratch = self._attach_scratch_pages()
+                dec = self._verify_and_accept()
         if not waves and dec is None:
             return []
-        # The step's single device->host copy: tokens + done masks.
+        # The step's single device->host copy: tokens + done masks (and a
+        # verify's emitted counts).
         outs = [o for _, o in waves] + ([dec] if dec is not None else [])
-        host = torch.stack([t.to(torch.int32) for o in outs for t in o]
-                           ).cpu().numpy()
+        flat = [t.to(torch.int32).reshape(-1) for o in outs for t in o]
+        host = torch.cat(flat).cpu().numpy()
         self.host_transfers += 1
+        parts, at = [], 0
+        for t in flat:
+            parts.append(host[at: at + t.numel()])
+            at += t.numel()
         now = time.monotonic()
         finished: List[Finished] = []
         freed: List[int] = []
-        for w, (group, _) in enumerate(waves):
-            tok, done = host[2 * w], host[2 * w + 1]
-            for r, (slot, req, _skip, _pages) in enumerate(group):
-                self._append_token(req, int(tok[r]), now)
+        for w, (rows, _) in enumerate(waves):
+            tok, done = parts[2 * w], parts[2 * w + 1]
+            for r, slot, req in rows:
+                self._append_tokens(req, tok[r:r + 1], now)
                 if done[r]:
                     finished.append(self._finish(req, now))
                     del self.active[slot]
                     freed.append(slot)
         if dec is not None:
-            tok, done = host[-2], host[-1]
+            tok = parts[2 * len(waves)]
+            done = parts[-1]
+            if self.spec is None:
+                tok, emit = tok[:, None], np.ones(self.slots, np.int64)
+            else:
+                tok = tok.reshape(self.slots, self.spec.k + 1)
+                emit = parts[2 * len(waves) + 1]
             for slot, req in list(self.active.items()):
-                self._append_token(req, int(tok[slot]), now)
+                e = int(emit[slot])
+                if self.spec is not None:
+                    self._spec_proposed += self.spec.k
+                    self._spec_accepted += max(e - 1, 0)
+                self._append_tokens(req, tok[slot, :e], now)
                 if done[slot]:
                     finished.append(self._finish(req, now))
                     del self.active[slot]
                     freed.append(slot)
+        if scratch:
+            self._release_scratch_pages(scratch)
         if self.paged and freed:
             self._teardown_slots(freed)
         return finished
 
-    def _append_token(self, req: Request, tok: int, now: float) -> None:
-        req.generated.append(tok)
-        if len(req.generated) == 1:  # TTFT: queue wait + full prefill
+    def _append_tokens(self, req: Request, toks, now: float) -> None:
+        """Book the tokens one step emitted for a request (a verify can
+        emit several); its first token stamps TTFT."""
+        if not req.generated:  # TTFT: queue wait + full prefill
             req.first_token_t = now
             self._ttfts.append(max(now - req.submit_t, 0.0))
+        req.generated.extend(int(t) for t in toks)
         req.last_token_t = now
 
     def _finish(self, req: Request, now: float) -> Finished:
@@ -402,15 +732,17 @@ class Engine:
         out: List[Finished] = []
         for _ in range(max_steps):
             out.extend(self.step())
-            if not self.active and not self.queue:
+            if not self.active and not self._chunking and not self.queue:
                 return out
         raise RuntimeError(
             f"run_until_drained: {len(self.queue)} queued, "
-            f"{len(self.active)} in flight after {max_steps} steps")
+            f"{len(self.active) + len(self._chunking)} in flight after "
+            f"{max_steps} steps")
 
     def stats(self) -> Dict[str, float]:
-        """Throughput/latency aggregates (zero-request safe), and on a
-        paged engine the pool and radix counters."""
+        """Throughput/latency aggregates (zero-request safe); on a paged
+        engine the pool and radix counters, on a speculative one the
+        draft counters."""
         out = {
             "steps": float(self.steps),
             "host_transfers": float(self.host_transfers),
@@ -420,6 +752,7 @@ class Engine:
             "latency_p95_s": percentile(self._latencies, 95),
             "ttft_p50_s": percentile(self._ttfts, 50),
             "ttft_p95_s": percentile(self._ttfts, 95),
+            "chunk_waves": float(self.chunk_waves),
         }
         if self.paged:
             out.update({
@@ -431,5 +764,16 @@ class Engine:
                 "radix_hits": float(self._prefix_hits),
                 "radix_nodes": float(self.radix.nodes),
                 "radix_evictions": float(self.radix.evictions),
+            })
+        if self.spec is not None:
+            out.update({
+                "spec_k": float(self.spec.k),
+                "spec_proposed": float(self._spec_proposed),
+                "spec_accepted": float(self._spec_accepted),
+                "spec_accept_rate": (self._spec_accepted
+                                     / max(self._spec_proposed, 1)),
+                # Emitted tokens per verify step (>= 1; K+1 at best).
+                "spec_tokens_per_step": (self._new_tokens
+                                         / max(self.steps, 1)),
             })
         return out

@@ -8,6 +8,9 @@ counter, and once it reaches ``starve_after`` nothing is admitted past it,
 so an aged request regains strict priority. Page reservation stays in the
 engine and comes in as a callable: the dense engine passes none (every
 candidate reserves trivially), the paged engine its pool reservation.
+With ``chunk_tokens`` (chunked prefill) an admission costs the step budget
+its first chunk only; the engine pre-charges the chunks of prompts already
+in flight before it picks.
 
 The reference's ``policy="cost"`` scores requests with the hardware twin's
 costs, which the port does not have yet: it raises
@@ -28,10 +31,14 @@ POLICIES = ("fcfs", "cost")
 
 class Scheduler:
     """Admission policy: which queued requests enter free slots this step,
-    against an optional per-step prefill ``budget``."""
+    against an optional per-step prefill ``budget``. ``chunk_tokens`` caps
+    the first prefill wave a request costs at admission (the chunk waves
+    take over from there); None/0 means the whole prompt lands in one
+    wave."""
 
     def __init__(self, policy: str = "fcfs", *,
                  budget: Optional[StepBudget] = None,
+                 chunk_tokens: Optional[int] = None,
                  max_skip: int = 8, starve_after: int = 4):
         if policy not in POLICIES:
             raise ValueError(f"unknown admission policy {policy!r}; "
@@ -42,19 +49,25 @@ class Scheduler:
         self.policy = policy
         self.cost = AdmissionCost()
         self.budget = budget
+        self.chunk_tokens = chunk_tokens or None
         self.max_skip = max_skip
         self.starve_after = starve_after
         self.now = 0              # engine steps seen (the age clock)
 
     def begin_step(self) -> BudgetTracker:
-        """Advance the age clock and open this step's budget tracker."""
+        """Advance the age clock and open this step's budget tracker. The
+        engine pre-charges chunk continuations on the tracker before calling
+        :meth:`pick`: in-flight prefills outrank every admission."""
         self.now += 1
         return BudgetTracker(self.budget)
 
-    def admit_tokens(self, req: Request) -> int:
-        """Prefill positions the admission itself launches this step (the
-        whole prompt: chunked prefill is not ported)."""
-        return max(len(req.prompt), 1)
+    def admit_tokens(self, req: Request, skip: int = 0) -> int:
+        """Prefill positions the admission itself launches this step: the
+        first chunk (chunked) or the whole non-cached remainder."""
+        remaining = max(len(req.prompt) - skip, 1)
+        if self.chunk_tokens:
+            return min(remaining, self.chunk_tokens)
+        return remaining
 
     def pick(self, queue: Deque[Request], n_free: int,
              tracker: BudgetTracker,
