@@ -65,17 +65,40 @@ on any fault:
              4 slots x 5 = 20 rows, each slot's table repeated 5 times,
              lengths n0+1 .. n0+5 clamped to the table's extent): within
              1e-6 at every cap and split (bitwise reported), two calls
-             equal, one launch a call, the n_splits sweep whose winner is
-             the ``_r20`` record, and at the 8-page cap the kernel, plain,
-             library and bound times (each slot's live pages counted once).
+             equal, one launch a call, at tables of 1, 2, 4, 8, 16 and 32
+             pages (every cap a 512-token engine picks); the n_splits sweep
+             at each cap and summed over the caps (the ``_r20`` record), at
+             every cap the split count the lookup picks beside the library
+             call, and at the 8-page cap the kernel, plain, library and
+             bound times (each slot's live pages counted once).
+Every serving drain replays captured CUDA graphs, the engine's default
+on the card (one per prefill bucket, chunk wave and decode or verify cap),
+unless it is named eager. The serve phase's engines keep the engine's
+default smallest prefill bucket (8), so its drains capture and replay
+prefill[8] to prefill[64]; the other serving phases' engines take
+``min_bucket=64`` (MIN_BUCKET), so each of their drains captures one or two
+prefill graphs. Each serving phase's kernel drain is held
+against an eager drain of the same engine configuration (identical
+streams, equal launches of every kernel, one host transfer a step), and
+the same requests drained again through the graph engine must capture
+nothing new (on a paged engine, whose radix tree then shortens the
+suffixes, a second drain may add a prefill bucket and a third nothing);
+each prints its graphs, their capture seconds and the peak device memory.
+A kernel drain's logits (for the near-tie reports) and its launches by
+row count are read on its eager twin, whose streams and launches are
+gated equal; the comparison drains (plain versions, gather composition,
+dense engine, quant=none, unchunked, spec off) replay graphs, and the
+logit tap reads each captured step's top logits after every replay.
+
 8. serve   — qwen3-0.6b at full width (28 layers, random weights from
              --seed), TimeFloats ``mode="pallas"``, bf16 activations,
              Engine(slots=4, max_len=512), 8 requests (prompts of 5-60
              tokens, 8 new tokens each, one at temperature 0.8) drained
              with the kernels; launch counts must be > 0 and host transfers
-             equal decode steps. The same requests are then drained with
-             every kernel replaced by its plain version: the token streams
-             must be identical and the launch counts must not move.
+             equal decode steps; the warm drain's streams must be the
+             first's. The same requests are then drained with every kernel
+             replaced by its plain version: the token streams must be
+             identical and the launch counts must not move.
 9. paged   — the same model, Engine(paged=True, slots=4, max_len=512,
              page_size=16), 8 greedy requests sharing a 48-token prefix
              (3 pages) with 5-60-token tails, 16 new tokens each, drained
@@ -100,7 +123,8 @@ on any fault:
              max_len=512) and paged (page_size=16, the paged phase's 48-token
              shared prefix before every prompt): 8 greedy requests, 4 of
              150-400 tokens and 4 of 5-60, 8 new tokens each, against the
-             same engine unchunked (kernels in both). Gates: chunk waves,
+             same engine unchunked (kernels in both), each mode's graph
+             drain against its eager twin. Gates: chunk waves,
              every long prompt's chunk log tiling it in order, one host
              transfer per step, every divergence from the unchunked streams
              a near-tie flip (the first token included); paged: radix hits,
@@ -119,7 +143,9 @@ on any fault:
              replay, drafts accepted. Prints steps, tokens per step, tok/s
              and TTFT of each beside the card's name and power limit. Then a
              dense self-draft drain (draft="model", the target its own
-             draft, 4 requests of 16 tokens): acceptance >= 0.9.
+             draft, 4 requests of 16 tokens), with graphs and eagerly:
+             acceptance >= 0.9 in both, and the graph drain against the
+             eager one.
 12. K5     — the split-K absorbed-MLA paged decode at deepseek-v3's decode
              shape (4 rows, 128 heads, latent 512 + rope 64, bf16 pools of
              16-token pages), tables of 1, 8 and 32 pages with ragged
@@ -139,7 +165,9 @@ on any fault:
              the live latent bytes and the f32 flops; information only,
              the earlier library composition (``enable_gqa=True``, the kv
              head expanded H-fold). K6 is also held bitwise on the MLA
-             pools. Then the chain verify's 20-row pattern as for K4.
+             pools. Then the chain verify's 20-row pattern as for K4, K5
+             at the lookup's split count gated faster than the library call
+             at every cap.
 13. train  — the same model and mode, remat="full", AdamW: run_loop for 3
              steps of batch 4 x 256 from DataPipeline(kind="lm"), with a
              final checkpoint in a temporary directory. Per step: loss,
@@ -165,11 +193,20 @@ on any fault:
              per prefill wave, none in the plain drain); the same requests
              with SpecConfig(k=4) and chunk_tokens=32 together against the
              kernel drain (K5 at 20 rows on every layer of every step, chunk
-             waves, a conserved pool, every divergence a near-tie flip, peak
-             memory below 80 GB); then a dense engine drain of 4 requests (8
+             waves, a conserved pool, at least 7 of 8 streams identical and
+             every divergence a near-tie flip, peak memory below 80 GB; its
+             streams' digest is printed, to compare runs; its eager twin,
+             drained after every other drain of the phase, must give the
+             same streams); before them, the absorption products at 20 rows
+             against 4-row columns (float32 einsums reported, the float64
+             sums gated bitwise); then a dense engine drain of 4 requests (8
              new tokens, one at temperature 0.8, so the threefry key chain
              runs on the card), kernels against plain versions: identical
-             streams. Prints the peak device memory.
+             streams. One engine's graphs are alive at a time. Prints the
+             peak device memory.
+15. graphs — in a process of its own, a step whose capture fails (a host
+             sync) raises, is not counted and never runs eagerly in place of
+             the graph.
 
 The kernels' JSON record and then the card's name and power limit are
 printed on the two lines before the last, each phase's seconds as it
@@ -197,6 +234,12 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 SLOTS, MAX_LEN = 4, 512        # the main drain's engine
 PROMPT_LENS = (5, 60)          # shortest and longest prompt of the drain
 PAGE, PREFIX = 16, 48          # the paged drain's page size, shared prefix
+# The smallest prefill bucket of every serving engine but the serve
+# phase's: their drains' prompts (5-108 tokens) then land in one or two
+# buckets, so each drain captures one or two prefill graphs (a capture
+# costs about as much as an eager step). The serve phase keeps the
+# engine's default of 8 and holds prefill[8] to prefill[64] on the card.
+MIN_BUCKET = 64
 # New tokens per dense request: 8 (16 before the paged phase came) keeps
 # the smoke near its earlier length while every slot is still reused once.
 DENSE_NEW = 8
@@ -212,12 +255,20 @@ LOSS_RTOL = 1e-3               # later steps' losses, kernels vs plain
 K4_TOL = 1e-6
 K4_SPLITS = (1, 2, 4, 8)
 K4_CAPS = (1, 8, 32)           # table extents (pages) held and timed
+# The chain verify's table extents: every pow2 KV cap of a 512-token engine.
+VERIFY_CAPS = (1, 2, 4, 8, 16, 32)
 PAGED_MIN_SAME = 6             # of 8 paged streams, kernels vs plain
 K5_TOL = K4_TOL                # K5 against its plain version, the same way
 SPEC_K = 4                     # draft depth of the speculative drains
 VERIFY_ROWS = SLOTS * (SPEC_K + 1)   # K4/K5 rows of a chain verify: 20
 MLA_LAYERS = 3                 # deepseek-v3's dense layers (first_k_dense)
 MLA_CHUNK = 32                 # chunk_tokens of the MLA spec+chunked drain
+# Of its 8 streams, how many must equal the MLA kernel drain's: 7 since its
+# absorption products sum in float64 (3-5 of 8 with float32 einsums, and
+# which ones changed with the phases run before). The eighth parts at an
+# exact tie: norms, softmax sums and the per-tensor prescale still see the
+# rows a call carries (PERF.md §7).
+MLA_SPEC_CHUNKED_SAME = 7
 PHASES = ("k1", "k2", "k3", "k6", "k4", "k5", "serve", "paged", "chunked",
           "spec", "train", "mla")
 
@@ -917,40 +968,55 @@ K4_TWO_KERNEL_MS = "0.0197-0.0199"
 
 
 def verify_pattern(torch, what: str, heads: int, dim: int, gen, make,
-                   hold, call, plain, library, n_pages: int, live_bytes
-                   ) -> int:
+                   hold, call, plain, library, n_pages: int, live_bytes,
+                   faster: bool = False) -> int:
     """K4 or K5 at the chain verify's row pattern (:func:`verify_table`):
-    at every cap of K4_CAPS and n_splits of K4_SPLITS within the kernel's
-    tolerance of its plain version (bitwise reported) and two calls equal,
-    one launch a call; the n_splits sweep summed over the caps, whose
-    winner is the record ``p{PAGE}_h{heads}_d{dim}_r{VERIFY_ROWS}``; at the
-    8-page cap the kernel, plain, library and bound times (the bound counts
-    each slot's live pages once, however many of its rows read them).
-    ``make[n_tab](pt, lens)`` builds the operands on the phase's pools of
-    that cap. Returns the winner."""
+    at every cap of VERIFY_CAPS and n_splits of K4_SPLITS within the
+    kernel's tolerance of its plain version (bitwise reported) and two
+    calls equal, one launch a call; the n_splits sweep, whose winner at
+    each cap is the record ``p{PAGE}_h{heads}_d{dim}_r{VERIFY_ROWS}_t{cap}``
+    (K5's record) and summed over the caps the record without ``_t`` (K4's);
+    at every cap the kernel at the split count the engine's lookup picks
+    beside the library call (with ``faster``, gated faster); at the 8-page
+    cap the kernel, plain, library and bound times (the bound counts each
+    slot's live pages once, however many of its rows read them).
+    ``make(pt, lens)`` builds the operands on the phase's pools. Returns
+    the summed winner."""
+    from repro_torch.kernels import paged_attn as kpa
+
     times = {ns: 0.0 for ns in K4_SPLITS}
-    worst, exact, vcases = 0.0, True, {}
-    for n_tab, build in make.items():
+    worst, exact, vcases, picked = 0.0, True, {}, {}
+    for n_tab in VERIFY_CAPS:
         pt, lens, live = verify_table(torch, gen, n_pages, n_tab)
-        case = build(pt, lens)
+        case = make(pt, lens)
         for ns in K4_SPLITS:
             err, same = hold(case, ns, f"verify rows={VERIFY_ROWS} "
                              f"cap={n_tab}")
             worst, exact = max(worst, err), exact and same
-        row = []
+        row, by_ns = [], {}
         for ns in K4_SPLITS:
-            t = time_ms(torch, lambda: call(case, ns), reps=50)
+            t = by_ns[ns] = time_ms(torch, lambda: call(case, ns), reps=50)
             times[ns] += t
             row.append(f"{ns}:{t:.4f}")
+        lib = time_ms(torch, library(case), reps=50)
+        ns = kpa._norm_splits(None, n_tab, page_size=PAGE, heads=heads,
+                              head_dim=dim, rows=VERIFY_ROWS)
+        picked[n_tab] = (ns, by_ns[ns], lib)
         print(f"{what} verify rows={VERIFY_ROWS} cap={n_tab:2d} pages "
-              f"lengths={lens.tolist()} ms by n_splits {' '.join(row)}",
-              flush=True)
+              f"lengths={lens.tolist()} ms by n_splits {' '.join(row)}; "
+              f"winner {min(by_ns, key=by_ns.get)}; the lookup's n_splits={ns} "
+              f"ms={by_ns[ns]:.4f} library_ms={lib:.4f} "
+              f"({lib / by_ns[ns]:.2f}x)", flush=True)
         vcases[n_tab] = (case, live)
     best = min(K4_SPLITS, key=lambda n: times[n])
     print(f"{what} verify rows={VERIFY_ROWS}: bitwise={exact} max "
-          f"|diff|/max(1,|plain|) {worst:.3e} at caps {K4_CAPS} x n_splits "
-          f"{K4_SPLITS}; two calls equal; n_splits winner {best} (record "
-          f"p{PAGE}_h{heads}_d{dim}_r{VERIFY_ROWS}: {best})", flush=True)
+          f"|diff|/max(1,|plain|) {worst:.3e} at caps {VERIFY_CAPS} x n_splits "
+          f"{K4_SPLITS}; two calls equal; n_splits winner summed over the "
+          f"caps {best}", flush=True)
+    if faster:
+        check(all(t < lib for _, t, lib in picked.values()),
+              f"{what} verify rows={VERIFY_ROWS}: slower than the library "
+              f"at a cap: {picked}")
     case, live = vcases[8]
     one_launch(torch, lambda: call(case, best),
                f"{what} verify rows={VERIFY_ROWS}")
@@ -962,7 +1028,8 @@ def verify_pattern(torch, what: str, heads: int, dim: int, gen, make,
     print(f"{what} verify rows={VERIFY_ROWS} cap=8 pages n_splits={best} "
           f"slots' live positions={live} KiB={nbytes / 1024:.1f} "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib:.4f} "
-          f"bound_ms={b_ms:.5f} ({b_by}) share_of_bound={b_ms / ms:.4f}",
+          f"bound_ms={b_ms:.5f} ({b_by}) share_of_bound={b_ms / ms:.4f}; "
+          f"at the lookup's n_splits={picked[8][0]} ms={picked[8][1]:.4f}",
           flush=True)
     return best
 
@@ -1060,11 +1127,10 @@ def phase_k4(torch, cfg, seed: int) -> dict:
               + SLOTS * cfg.n_heads * d * 4 + pt.numel() * 4 + SLOTS * 4)
     b_ms, b_by = bound(nbytes, 4.0 * live * cfg.n_heads * d,
                        BF16_FLOPS_PER_S)
-    verify_pattern(torch, "K4", cfg.n_heads, d, gen, {
-        n_tab: (lambda pt, lens, c=c: (
-            torch.randn(VERIFY_ROWS, cfg.n_heads, d, generator=gen,
-                        device="cuda").bfloat16(), c[1], c[2], pt, lens))
-        for n_tab, c in cases.items()},
+    verify_pattern(torch, "K4", cfg.n_heads, d, gen,
+        lambda pt, lens: (torch.randn(VERIFY_ROWS, cfg.n_heads, d,
+                                      generator=gen, device="cuda"
+                                      ).bfloat16(), kpool, vpool, pt, lens),
         hold=lambda case, ns, what: k4_hold(torch, kpa, case, ns, what),
         call=lambda case, ns: kpa.paged_decode_attention(*case, n_splits=ns),
         plain=lambda case, ns: kpa._combine(*kpa._gqa_plain(
@@ -1112,10 +1178,14 @@ def _requests(cfg, seed: int):
             for i, n in enumerate(lens)]
 
 
-def _drain(torch, params, cfg, seed: int):
+def _drain(torch, params, cfg, seed: int, eng=None, **engine_kw):
+    """Drain the serve phase's requests through a new dense engine (the
+    engine's default prefill buckets), or through ``eng`` again."""
     from repro_torch.serve.engine import Engine
 
-    eng = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed)
+    if eng is None:
+        eng = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed,
+                     **engine_kw)
     for r in _requests(cfg, seed):
         eng.submit(r)
     torch.cuda.synchronize()
@@ -1127,6 +1197,106 @@ def _drain(torch, params, cfg, seed: int):
     return eng, {f.uid: [int(t) for t in f.tokens] for f in done}, wall, cpu
 
 
+# -- CUDA graphs: every serving phase's kernel drain replays captured steps
+# (the engine's default on the card) and is held against an eager drain.
+
+def release(torch) -> None:
+    """Free what dead engines hold: their graphs and memory pools (an
+    engine a test double patched sits in a reference cycle until a
+    collection)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def graph_note(what: str, eng, torch) -> None:
+    """Print the step graphs ``eng`` captured, their capture seconds, the
+    seconds of the eager warm-up steps before them, and the peak device
+    memory since the last reset."""
+    g = eng.graphs
+    print(f"{what}: graphs={'on' if g.capture else 'off'} step callables="
+          f"{len(g.counts)} capture_s={sum(g.capture_s.values()):.2f} ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(g.capture_s.items()))
+          + f") after warm-up steps of {sum(g.warm_s.values()):.2f}s "
+          f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          flush=True)
+
+
+def snap(eng) -> tuple:
+    """(captures, steps, host transfers, chunk waves) of an engine after a
+    drain."""
+    return eng.graphs.capture, eng.steps, eng.host_transfers, eng.chunk_waves
+
+
+def hold_graphs(what: str, graph: tuple, eager: tuple) -> None:
+    """A graph drain against an eager drain of the same engine
+    configuration, each (:func:`snap`, streams, launches by kernel):
+    identical streams, equal launches of every kernel, the same steps and
+    host transfers, one transfer a decode step (a step() that runs only a
+    chunk wave transfers without decoding)."""
+    ((gc, g_steps, g_tr, g_cw), gs, gl), ((ec, e_steps, e_tr, _), es, el) = (
+        graph, eager)
+    check(gc and not ec, f"{what}: the graph drain must capture and the "
+          "eager one not")
+    same = sum(gs.get(u) == es.get(u) for u in es)
+    print(f"{what}: graph drain against the eager drain: identical streams "
+          f"{same}/{len(es)}; launches {gl} vs {el}; steps {g_steps} vs "
+          f"{e_steps}; host_transfers {g_tr} vs {e_tr}", flush=True)
+    check(gs == es, f"{what}: graph and eager streams differ")
+    check(gl == el, f"{what}: launches differ: graphs {gl}, eager {el}")
+    check(g_steps == e_steps and g_tr == e_tr
+          and g_steps <= g_tr <= g_steps + g_cw,
+          f"{what}: host transfers are not one a step")
+
+
+def digest(streams: dict) -> str:
+    """A short hash of a drain's streams, to compare drains across runs."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(sorted(streams.items())).encode()
+                          ).hexdigest()[:16]
+
+
+def step_times(what: str, steps: list) -> None:
+    """Median wall ms of a drain's steps with and without a chunk wave (the
+    step's one host copy ends each, so a step's wall is its device work
+    plus what the host adds)."""
+    import statistics
+
+    for wave, label in ((True, "chunk-wave steps"), (False, "other steps")):
+        ts = [1e3 * t for t, w in steps if w == wave]
+        if ts:
+            print(f"{what}: {label} median wall_ms={statistics.median(ts):.1f}"
+                  f" (n={len(ts)}, min {min(ts):.1f}, max {max(ts):.1f})",
+                  flush=True)
+
+
+def hold_warm(what: str, eng, redrain) -> None:
+    """Drain the same requests through ``eng`` again: nothing new may be
+    captured. On a paged engine the radix tree now holds the prompts' pages,
+    so the suffixes shorten and a prefill bucket the first drain never
+    reached may be captured; a third drain must then capture nothing."""
+    first = eng.compile_cache_stats()
+    redrain()
+    second = eng.compile_cache_stats()
+    added = sorted(k for k in second if second[k] != first.get(k))
+    buckets = [k for k in added if k != "prefill_total"]
+    third = None
+    if eng.paged and added and all(k.startswith("prefill[")
+                                   for k in buckets):
+        redrain()
+        third = eng.compile_cache_stats()
+    print(f"{what}: second drain on the same engine captured {added or 'nothing'}"
+          + ("" if third is None else
+             f"; a third captured "
+             f"{sorted(k for k in third if third[k] != second.get(k)) or 'nothing'}")
+          + f"; {second['prefill_total']} prefill and "
+          f"{second['decode_total']} decode graphs", flush=True)
+    check(not added or (third is not None and third == second),
+          f"{what}: a warm drain captured {added}")
+
+
 def phase_serve(torch, cfg, seed: int, params) -> dict:
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import sampling as ks
@@ -1135,8 +1305,10 @@ def phase_serve(torch, cfg, seed: int, params) -> dict:
 
     km.timefloats_matmul_quantized.launches = 0
     ks.sample.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     eng, streams, wall, cpu = _drain(torch, params, cfg, seed)
     k1, k3 = km.timefloats_matmul_quantized.launches, ks.sample.launches
+    graph_note("serve", eng, torch)
     st = eng.stats()
     new = int(st["new_tokens"])
     print(f"serve: drained {int(st['finished'])} requests, {new} tokens in "
@@ -1157,6 +1329,26 @@ def phase_serve(torch, cfg, seed: int, params) -> dict:
     check(k1 > 0 and k3 > 0, f"kernel launches K1={k1} K3={k3}")
     check(eng.host_transfers == eng.steps,
           f"host_transfers {eng.host_transfers} != steps {eng.steps}")
+    again, steps0, g_snap = [], eng.steps, snap(eng)
+    hold_warm("serve", eng, lambda: again.append(
+        _drain(torch, params, cfg, seed, eng=eng)))
+    check(again[0][1] == streams, "serve: the warm drain's streams differ")
+    print(f"serve: warm drain (every step a replay) in {again[0][2]:.2f}s: "
+          f"wall_ms_per_step={1e3 * again[0][2] / (eng.steps - steps0):.1f}"
+          f" host_cpu_share={again[0][3] / again[0][2]:.3f}", flush=True)
+
+    km.timefloats_matmul_quantized.launches = 0
+    ks.sample.launches = 0
+    e_eng, e_streams, e_wall, e_cpu = _drain(torch, params, cfg, seed,
+                                             graphs=False)
+    print(f"serve: eager drain in {e_wall:.2f}s: wall_ms_per_step="
+          f"{1e3 * e_wall / e_eng.steps:.1f} host_cpu_share="
+          f"{e_cpu / e_wall:.3f}", flush=True)
+    hold_graphs("serve", (g_snap, streams, {"K1": k1, "K3": k3}),
+                (snap(e_eng), e_streams, {
+                    "K1": km.timefloats_matmul_quantized.launches,
+                    "K3": ks.sample.launches}))
+    del e_eng
 
     x = torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32, device="cuda")
     logits, _ = model.prefill(params, x, cfg, model.init_cache(cfg, 1, 8))
@@ -1193,11 +1385,17 @@ def _paged_requests(cfg, seed: int, max_new: int = 16):
 
 
 def _paged_drain(torch, params, cfg, seed: int, paged: bool = True,
-                 max_new: int = 16, **engine_kw):
+                 max_new: int = 16, eng=None, setup=None, **engine_kw):
+    """Drain the paged phase's requests through a new engine (``setup``
+    sees it first), or through ``eng`` again."""
     from repro_torch.serve.engine import Engine
 
-    eng = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed,
-                 paged=paged, page_size=PAGE, **engine_kw)
+    if eng is None:
+        eng = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed,
+                     paged=paged, page_size=PAGE, min_bucket=MIN_BUCKET,
+                     **engine_kw)
+        if setup is not None:
+            setup(eng)
     for r in _paged_requests(cfg, seed, max_new):
         eng.submit(r)
     torch.cuda.synchronize()
@@ -1216,25 +1414,56 @@ class LogitTap:
     """Keeps the top ``TAP_TOP`` logits of every row of every sampling call
     an engine makes (the engine's ``sample_tokens``, wrapped while the tap
     is entered), so that a drain's token i of request u can be looked up by
-    the (tag, counter) = (uid, i) the engine sampled it under."""
+    the (tag, counter) = (uid, i) the engine sampled it under.
+
+    On a graph drain the top-k a step computes at its capture is read from
+    the graph's own tensors after each of its replays (``StepGraphs.call``
+    is wrapped too). Rows are copied out of the engine's graph pool at
+    once: a warm-up's tensors there may sit in blocks another graph's
+    replay rewrites. The top-k stays in the captured graph (the tap keeps
+    its tensors, so the graph never writes a freed block), so a drain
+    that is timed afterwards is tapped on its eager twin instead."""
 
     def __init__(self):
         from repro_torch.serve import engine as eng_mod
+        from repro_torch.serve.request import StepGraphs
 
         self.mod, self.real, self.calls = eng_mod, eng_mod.sample_tokens, []
+        self.cls, self.real_call = StepGraphs, StepGraphs.call
+        self.fresh: list = []     # (captured?, rows) of the current call
+        self.captured: dict = {}  # (graphs, name) -> rows its capture made
 
     def __enter__(self):
+        import torch
+
         def tapped(logits, temps, key, tags, counters):
+            # Copies of the keys as the step samples them: a step advances
+            # its counters in place after sampling.
             top = logits.float().topk(TAP_TOP, dim=-1)
-            self.calls.append((top.values, top.indices, tags.clone(),
-                               counters.clone()))
+            self.fresh.append((torch.cuda.is_current_stream_capturing(), (
+                top.values, top.indices, tags.clone(), counters.clone())))
             return self.real(logits, temps, key, tags, counters)
 
+        def call(graphs, name, fn, *host):
+            out = self.real_call(graphs, name, fn, *host)
+            made, self.fresh = self.fresh, []
+            for captured, rows in made:
+                if captured:
+                    self.captured.setdefault((graphs, name), []).append(rows)
+                else:   # an eager call or a capture's warm-up
+                    self.calls.append(tuple(t.clone() for t in rows))
+            if not made:   # a replay: it rewrote the captured rows
+                self.calls.extend(tuple(t.clone() for t in rows) for rows
+                                  in self.captured.get((graphs, name), ()))
+            return out
+
         self.mod.sample_tokens = tapped
+        self.cls.call = call
         return self
 
     def __exit__(self, *exc):
         self.mod.sample_tokens = self.real
+        self.cls.call = self.real_call
 
     def table(self) -> dict:
         """{(uid, i): [{token id: logit} of the top ones, ...]} over every
@@ -1297,11 +1526,14 @@ def divergence_report(what: str, a: tuple, b: tuple, phase: str = "paged",
     diverges at once and to tokens the other drain ranks low."""
     (na, sa, ta), (nb, sb, tb) = a, b
     same, noise, swaps, rows, near = 0, 0.0, 0, 0, True
+    found = seen = 0   # tokens whose rows both taps hold
     for u in sorted(sa):
         d = next((i for i, (x, y) in enumerate(zip(sa[u], sb[u])) if x != y),
                  None)
         for i in range(len(sa[u]) if d is None else d):
             ea, eb = _row(ta, u, i, sa[u][i]), _row(tb, u, i, sb[u][i])
+            seen += 1
+            found += bool(ea and eb)
             if ea and eb:
                 noise = max(noise, abs(ea[sa[u][i]] - eb[sb[u][i]])
                             / bf16_ulp(ea[sa[u][i]]))
@@ -1323,13 +1555,15 @@ def divergence_report(what: str, a: tuple, b: tuple, phase: str = "paged",
               f"{x}, {nb} {y}); {na}'s lead of {x} over {y} {fmt(la)}, "
               f"{nb}'s lead of {y} over {x} {fmt(lb)} bf16 ulps; top-two "
               f"swap {swap}", flush=True)
+    check(found == seen, f"{phase}: {what}: the logit taps hold the rows "
+          f"of only {found}/{seen} tokens")
     where = "at any token" if first_ok else "after the first token"
     print(f"{phase}: {what}: identical streams {same}/{len(sa)}; divergences"
           f" that are top-two swaps {swaps}/{rows}; all near-tie flips "
           f"({where}, within each other's top {TAP_TOP}, "
           f"leads <= {NEAR_TIE_ULPS} ulps) {near}; noise between the two "
-          f"drains' top logits before divergence {noise:.2f} bf16 ulps",
-          flush=True)
+          f"drains' top logits before divergence {noise:.2f} bf16 ulps "
+          f"(both taps hold the rows of {found}/{seen} tokens)", flush=True)
     return {"same": same, "near_ties": near, "noise": noise}
 
 
@@ -1356,9 +1590,10 @@ def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
             fn.launches = 0
 
     reset()
-    with LogitTap() as tap_f:
-        eng, streams, wall, cpu = _paged_drain(torch, params, cfg, seed)
+    torch.cuda.reset_peak_memory_stats()
+    eng, streams, wall, cpu = _paged_drain(torch, params, cfg, seed)
     launches = {k: fn.launches for k, fn in counters.items()}
+    graph_note("paged", eng, torch)
     st = eng.stats()
     new = int(st["new_tokens"])
     print(f"paged: drained {int(st['finished'])} requests, {new} tokens in "
@@ -1394,6 +1629,20 @@ def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
     check(eng.pool.conserved(), "paged: pool not conserved")
     check(not bool(eng.state.cache.layers[0].pt.any()),
           "paged: page tables not all-trash after the drain")
+    reset()
+    with LogitTap() as tap_f:   # the kernel drain's logits, on its twin
+        e_eng, e_streams, e_wall, e_cpu = _paged_drain(
+            torch, params, cfg, seed, graphs=False)
+    print(f"paged: eager drain in {e_wall:.2f}s: wall_ms_per_step="
+          f"{1e3 * e_wall / e_eng.steps:.1f} host_cpu_share="
+          f"{e_cpu / e_wall:.3f}", flush=True)
+    hold_graphs("paged", (snap(eng), streams, launches), (
+        snap(e_eng), e_streams, {k: fn.launches for k, fn in counters.items()}))
+    del e_eng
+    hold_warm("paged", eng, lambda: _paged_drain(torch, params, cfg, seed,
+                                                 eng=eng))
+    check(eng.pool.conserved(), "paged: pool not conserved after the warm "
+          "drains")
 
     reset()
     with dispatch.override(kernels=False), LogitTap() as tap_p:
@@ -1498,15 +1747,21 @@ CHUNK_LONG = (150, 400)        # its long prompts' lengths
 
 class RowCount:
     """Counts the launches of a kernel wrapper's CUDA entry by their row
-    count (the first dimension of the first operand), while entered."""
+    count (the first dimension of the first operand), while entered. A
+    replay does not call the wrapper, so it counts eager drains only, and
+    a capture while it is entered fails the smoke."""
 
     def __init__(self, mod, name: str):
         self.mod, self.name, self.rows = mod, name, {}
 
     def __enter__(self):
+        import torch
+
         real = self.real = getattr(self.mod, self.name)
 
         def counted(q, *a, **kw):
+            check(not torch.cuda.is_current_stream_capturing(),
+                  f"RowCount({self.name}) on a graph drain")
             self.rows[q.shape[0]] = self.rows.get(q.shape[0], 0) + 1
             return real(q, *a, **kw)
 
@@ -1517,18 +1772,21 @@ class RowCount:
         setattr(self.mod, self.name, self.real)
 
 
-def _drive(torch, eng, reqs):
+def _drive(torch, eng, reqs, steps=None):
     """Submit ``reqs`` and step ``eng`` until drained. Returns the streams,
     the wall and host CPU seconds, the step() calls and the most host
-    transfers any one call made."""
+    transfers any one call made. ``steps`` collects each call's wall
+    seconds and whether it ran a chunk wave."""
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
     t0, c0 = time.monotonic(), time.process_time()
     done, calls, most = [], 0, 0
     while eng.active or eng._chunking or eng.queue:
-        h0 = eng.host_transfers
+        h0, w0, t1 = eng.host_transfers, eng.chunk_waves, time.monotonic()
         done.extend(eng.step())
+        if steps is not None:
+            steps.append((time.monotonic() - t1, eng.chunk_waves > w0))
         calls += 1
         most = max(most, eng.host_transfers - h0)
         check(calls < 10_000, "a drain did not end")
@@ -1587,7 +1845,7 @@ def phase_chunked(torch, cfg, seed: int, params) -> dict:
     for paged in (False, True):
         mode = "paged" if paged else "dense"
         kw = dict(slots=SLOTS, max_len=MAX_LEN, seed=seed, paged=paged,
-                  page_size=PAGE)
+                  page_size=PAGE, min_bucket=MIN_BUCKET)
         for fn in counters.values():
             fn.launches = 0
         eng = Engine(params, cfg, chunk_tokens=CHUNK, **kw)
@@ -1602,11 +1860,25 @@ def phase_chunked(torch, cfg, seed: int, params) -> dict:
 
         eng._run_chunk_wave = counted_wave
         reqs = _chunk_requests(cfg, seed, prefix=paged)
-        with LogitTap() as tap_c:
-            got, wall, _, calls, most = _drive(torch, eng, reqs)
+        torch.cuda.reset_peak_memory_stats()
+        got, wall, _, calls, most = _drive(torch, eng, reqs)
         launches = {k: fn.launches for k, fn in counters.items()}
         st = _report(f"chunked {mode}", eng, got, wall, calls, most,
                      launches)
+        graph_note(f"chunked {mode}", eng, torch)
+        # The eager twin: the graph drain's gate, and the logits of the
+        # chunked streams for the report against the unchunked engine.
+        for fn in counters.values():
+            fn.launches = 0
+        e_eng = Engine(params, cfg, chunk_tokens=CHUNK, graphs=False, **kw)
+        with LogitTap() as tap_c:
+            e_got, e_wall, _, e_calls, e_most = _drive(
+                torch, e_eng, _chunk_requests(cfg, seed, prefix=paged))
+        _report(f"chunked {mode} (eager)", e_eng, e_got, e_wall, e_calls,
+                e_most, {})
+        hold_graphs(f"chunked {mode}", (snap(eng), got, launches), (
+            snap(e_eng), e_got, {k: fn.launches for k, fn in counters.items()}))
+        del e_eng
         base = Engine(params, cfg, **kw)
         with LogitTap() as tap_u:
             ref, ref_wall, _, ref_calls, ref_most = _drive(
@@ -1653,6 +1925,11 @@ def phase_chunked(torch, cfg, seed: int, params) -> dict:
                 "pool_pages_free")) + f"; K6 launches on chunk waves "
                 f"{k6_chunks[0]}", flush=True)
             out = launches
+        warm: list = []
+        hold_warm(f"chunked {mode}", eng, lambda: _drive(
+            torch, eng, _chunk_requests(cfg, seed, prefix=paged),
+            steps=warm))
+        step_times(f"chunked {mode} warm drains (replays)", warm)
     return out
 
 
@@ -1716,7 +1993,7 @@ def phase_spec(torch, cfg, seed: int, params) -> dict:
     counters = {"K1": km.timefloats_matmul_quantized, "K3": ks.sample,
                 "K4": kpa.paged_decode_attention, "K6": kp.gather_pages}
     kw = dict(slots=SLOTS, max_len=MAX_LEN, seed=seed, paged=True,
-              page_size=PAGE)
+              page_size=PAGE, min_bucket=MIN_BUCKET)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
@@ -1738,65 +2015,109 @@ def phase_spec(torch, cfg, seed: int, params) -> dict:
     out = {}
     for draft in ("ngram", "replay"):
         what = f"spec {draft}"
-        for fn in counters.values():
-            fn.launches = 0
-        eng = Engine(params, cfg, spec=SpecConfig(k=SPEC_K), **kw)
-        if draft == "replay":
-            replay_drafts(eng, ref)
-        with LogitTap() as tap_s, RowCount(kpa, "_gqa_kernel") as k4_rows:
+        graph = None
+        if draft == "ngram":
+            for fn in counters.values():
+                fn.launches = 0
+            eng = Engine(params, cfg, spec=SpecConfig(k=SPEC_K), **kw)
+            torch.cuda.reset_peak_memory_stats()
             got, wall, _, calls, most = _drive(
                 torch, eng, _motif_requests(cfg, seed, 8, 16))
-        launches = {k: fn.launches for k, fn in counters.items()}
+            launches = {k: fn.launches for k, fn in counters.items()}
+            graph_note(what, eng, torch)
+            summary(what, eng, _report(what, eng, got, wall, calls, most,
+                                       launches), wall)
+            graph = (snap(eng), got, launches)
+            out = launches
+        # The eager drain: the ngram graph drain's twin (its logits and K4
+        # launches by rows are read here); the replay drain takes 8 steps,
+        # where captures would outweigh replays.
+        for fn in counters.values():
+            fn.launches = 0
+        e = Engine(params, cfg, spec=SpecConfig(k=SPEC_K), graphs=False, **kw)
+        if draft == "replay":
+            replay_drafts(e, ref)
+        with LogitTap() as tap_s, RowCount(kpa, "_gqa_kernel") as k4_rows:
+            e_got, e_wall, _, e_calls, e_most = _drive(
+                torch, e, _motif_requests(cfg, seed, 8, 16))
+        e_launches = {k: fn.launches for k, fn in counters.items()}
         k3_rows: dict = {}   # the engine's sampling calls, one K3 each
         for values, *_ in tap_s.calls:
             k3_rows[values.shape[0]] = k3_rows.get(values.shape[0], 0) + 1
-        st = _report(what, eng, got, wall, calls, most, launches)
-        summary(what, eng, st, wall)
+        st = _report(f"{what} (eager)", e, e_got, e_wall, e_calls, e_most,
+                     e_launches)
+        summary(f"{what} (eager)", e, st, e_wall)
         print(f"{what}: accepted {int(st['spec_accepted'])} of "
               f"{int(st['spec_proposed'])} drafts (rate "
               f"{st['spec_accept_rate']:.4f}); K4 launches by rows "
               f"{k4_rows.rows}; K3 launches by rows {k3_rows}", flush=True)
+        if graph is not None:
+            hold_graphs(what, graph, (snap(e), e_got, e_launches))
         rep = divergence_report(f"{draft} spec on vs spec off",
-                                (draft, got, tap_s.table()),
+                                (draft, e_got, tap_s.table()),
                                 ("off", ref, tap_b.table()), phase="spec")
-        check(sorted(got) == list(range(8)) and all(
-            len(t) == 16 for t in got.values()),
+        check(sorted(e_got) == list(range(8)) and all(
+            len(t) == 16 for t in e_got.values()),
             f"{what}: 8 requests of 16 tokens")
         check(rep["near_ties"], f"{what}: a divergence from the spec-off "
               "engine that is not a near-tie flip")
         check(k4_rows.rows.get(VERIFY_ROWS, 0) > 0
-              and launches["K4"] == cfg.n_layers * eng.steps,
-              f"{what}: K4 launches {k4_rows.rows} in {eng.steps} steps")
+              and e_launches["K4"] == cfg.n_layers * e.steps,
+              f"{what}: K4 launches {k4_rows.rows} in {e.steps} steps")
         check(k3_rows.get(VERIFY_ROWS, 0) > 0 and sum(k3_rows.values())
-              == launches["K3"], f"{what}: K3 launches by rows {k3_rows}")
-        check(eng.pool.conserved() and eng.pool.pages_in_use
-              == eng.radix.evictable_pages(),
-              f"{what}: scratch pages not released or the pool not "
-              "conserved")
-        check(not bool(eng.state.cache.layers[0].pt.any()),
-              f"{what}: page tables not all-trash after the drain")
+              == e_launches["K3"], f"{what}: K3 launches by rows {k3_rows}")
+        for x in (e,) if graph is None else (e, eng):
+            check(x.pool.conserved() and x.pool.pages_in_use
+                  == x.radix.evictable_pages(),
+                  f"{what}: scratch pages not released or the pool not "
+                  "conserved")
+            check(not bool(x.state.cache.layers[0].pt.any()),
+                  f"{what}: page tables not all-trash after the drain")
+        del e
         if draft == "replay":
             check(st["spec_accepted"] > 0, f"{what}: no draft accepted")
-        else:
-            out = launches
+            continue
+        warm: list = []
+        hold_warm(what, eng, lambda: _drive(
+            torch, eng, _motif_requests(cfg, seed, 8, 16), steps=warm))
+        step_times(f"{what} warm drains (replays; 20-row verify steps)",
+                   warm)
+        del eng
 
-    # The target as its own draft: every chain should be accepted.
-    sd = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed,
-                spec=SpecConfig(k=SPEC_K, draft="model", draft_params=params,
-                                draft_cfg=cfg))
-    sd_got, sd_wall, _, sd_calls, sd_most = _drive(
-        torch, sd, _motif_requests(cfg, seed, 4, SELF_DRAFT_NEW))
-    sd_st = _report("spec self-draft", sd, sd_got, sd_wall, sd_calls,
-                    sd_most, {})
-    print(f"spec self-draft: acceptance {sd_st['spec_accept_rate']:.4f} "
-          f"({int(sd_st['spec_accepted'])}/{int(sd_st['spec_proposed'])}; "
-          f"gate >= {SELF_DRAFT_MIN}) tokens_per_step="
-          f"{sd_st['new_tokens'] / max(sd.steps, 1):.3f}", flush=True)
-    check(sorted(sd_got) == list(range(4)), "spec self-draft: 4 requests")
-    check(sd_st["spec_accept_rate"] >= SELF_DRAFT_MIN,
-          f"spec self-draft: acceptance {sd_st['spec_accept_rate']}")
+    # The target as its own draft: every chain should be accepted; with
+    # graphs (one captured verify holds the draft's chain) against eager.
+    sd_kw = dict(slots=SLOTS, max_len=MAX_LEN, seed=seed,
+                 min_bucket=MIN_BUCKET, spec=SpecConfig(
+                     k=SPEC_K, draft="model", draft_params=params,
+                     draft_cfg=cfg))
+    sd_runs = {}
+    for graphs in (True, False):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        sd = Engine(params, cfg, graphs=graphs, **sd_kw)
+        sd_got, sd_wall, _, sd_calls, sd_most = _drive(
+            torch, sd, _motif_requests(cfg, seed, 4, SELF_DRAFT_NEW))
+        sd_launches = {k: fn.launches for k, fn in counters.items()}
+        what = "spec self-draft" + ("" if graphs else " (eager)")
+        sd_st = _report(what, sd, sd_got, sd_wall, sd_calls, sd_most,
+                        sd_launches)
+        graph_note(what, sd, torch)
+        print(f"{what}: acceptance {sd_st['spec_accept_rate']:.4f} "
+              f"({int(sd_st['spec_accepted'])}/{int(sd_st['spec_proposed'])}"
+              f"; gate >= {SELF_DRAFT_MIN}) tokens_per_step="
+              f"{sd_st['new_tokens'] / max(sd.steps, 1):.3f}", flush=True)
+        check(sorted(sd_got) == list(range(4)), f"{what}: 4 requests")
+        check(sd_st["spec_accept_rate"] >= SELF_DRAFT_MIN,
+              f"{what}: acceptance {sd_st['spec_accept_rate']}")
+        sd_runs[graphs] = (snap(sd), sd_got, sd_launches)
+        if graphs:
+            hold_warm("spec self-draft", sd, lambda: _drive(
+                torch, sd, _motif_requests(cfg, seed, 4, SELF_DRAFT_NEW)))
+        del sd
+        release(torch)
+    hold_graphs("spec self-draft", sd_runs[True], sd_runs[False])
     return out
-
 
 def phase_train(torch, cfg, seed: int) -> dict:
     from repro_torch import tree as tree_lib
@@ -2097,6 +2418,7 @@ def phase_k5(torch, cfg, seed: int) -> dict:
               f"{lib_by_cap[n_tab]:.4f} ({lib_by_cap[n_tab] / t:.2f}x)",
               flush=True)
 
+    check(faster, "K5: slower than the library call at a cap (4 rows)")
     rec = cases[8]   # the paged drain's usual cap
     q_lat, q_rope, cpool, rpool, pt, lens = rec
     one_launch(torch, lambda: kpa.paged_decode_mla(
@@ -2119,19 +2441,18 @@ def phase_k5(torch, cfg, seed: int) -> dict:
               + SLOTS * 4)
     b_ms, b_by = bound(nbytes, 2.0 * h * live * (c + r + c),
                        F32_FLOPS_PER_S)
-    verify_pattern(torch, "K5", h, c + r, gen, {
-        n_tab: (lambda pt, lens, o=o: (
+    verify_pattern(torch, "K5", h, c + r, gen,
+        lambda pt, lens: (
             torch.randn(VERIFY_ROWS, h, c, generator=gen,
                         device="cuda") * 0.05,
             torch.randn(VERIFY_ROWS, h, r, generator=gen,
-                        device="cuda").bfloat16(), o[2], o[3], pt, lens))
-        for n_tab, o in cases.items()},
+                        device="cuda").bfloat16(), cpool, rpool, pt, lens),
         hold=lambda ops, ns, what: k5_hold(torch, kpa, ops, scale, ns, what),
         call=lambda ops, ns: kpa.paged_decode_mla(*ops, scale=scale,
                                                   n_splits=ns),
         plain=lambda ops, ns: kpa._combine(*kpa._mla_plain(
             *ops, scale=scale, n_splits=ns)),
-        library=library, n_pages=cpool.shape[0],
+        library=library, n_pages=cpool.shape[0], faster=True,
         live_bytes=lambda ops, live: (
             live * (c + r) * cpool.element_size() + ops[0].numel() * 4
             + ops[1].numel() * 2 + VERIFY_ROWS * h * c * 4
@@ -2177,6 +2498,49 @@ def mla_k1_shapes(cfg) -> dict:
         shapes[kn] = shapes.get(kn, 0) + cfg.n_layers
     shapes[(d, cfg.vocab_size)] = 1
     return shapes
+
+
+def absorption_probe(torch, params, cfg, gen) -> None:
+    """MLA's absorption products at a chain verify's 20 rows against the
+    same rows computed 4 at a time (a decode step's), as float32 einsums
+    (the port's earlier form) and as the float64 sums it runs now: mismatched
+    elements of q_lat and of the up-projection, twice each (the second
+    pass after other work has moved the allocator). The float64 sums are
+    gated bitwise."""
+    from repro_torch.models import mla
+
+    m = cfg.mla
+    wkv_b = params["layers"][0]["mixer"]["wkv_b"]
+    wk_b = wkv_b[..., :m.qk_nope_head_dim]
+    wv_b = wkv_b[..., m.qk_nope_head_dim:]
+    s = SPEC_K + 1
+    q = torch.randn(SLOTS, s, cfg.n_heads, m.qk_nope_head_dim,
+                    generator=gen, device="cuda").bfloat16()
+    o = torch.randn(SLOTS, s, cfg.n_heads, m.kv_lora_rank, generator=gen,
+                    device="cuda") * 0.05
+    forms = {
+        "float32 einsum": (
+            lambda x: torch.einsum("bshn,chn->bshc", x.float(), wk_b.float()),
+            lambda y: torch.einsum("bshc,chv->bshv", y, wv_b.float())),
+        "float64 sums": (
+            lambda x: mla.absorb_query(x, wk_b),
+            lambda y: mla._exact_einsum("bshc,chv->bshv", y, wv_b.float()))}
+    for name, (absorb, up) in forms.items():
+        counts = []
+        for _ in range(2):
+            for f, x in ((absorb, q), (up, o)):
+                whole = f(x)
+                cols = torch.cat([f(x[:, j:j + 1]) for j in range(s)], 1)
+                counts.append(int((whole != cols).sum().item()))
+            pad = torch.empty(int(1e7) + 37, device="cuda")  # move the heap
+        del pad
+        print(f"mla: absorption probe ({name}): {SLOTS * s} rows against "
+              f"{SLOTS}-row columns, mismatched elements of q_lat and of the "
+              f"up-projection {counts[:2]}, again {counts[2:]} (of "
+              f"{q.shape[:3].numel() * m.kv_lora_rank} and "
+              f"{q.shape[:3].numel() * m.v_head_dim})", flush=True)
+    check(counts == [0, 0, 0, 0], "mla: the float64 absorption sums depend "
+          "on the rows a call carries")
 
 
 def _mla_dense_requests(cfg, seed: int):
@@ -2285,35 +2649,38 @@ def phase_mla(torch, cfg, seed: int) -> dict:
     print(f"mla: K3 bitwise at V={cfg.vocab_size} with threefry noise",
           flush=True)
 
+    absorption_probe(torch, params, cfg, gen)
     counters = {"K1": km.timefloats_matmul_quantized, "K3": ks.sample,
                 "K4": kpa.paged_decode_attention, "K5": kpa.paged_decode_mla,
                 "K6": kp.gather_pages}
     waves = [0]
-    prefill_pages = model.prefill_into_pages
 
-    def counted(*a, **kw):
-        waves[0] += 1
-        return prefill_pages(*a, **kw)
+    def count_waves(e):
+        wave = e._prefill_wave
+
+        def counted(*a, **kw):
+            waves[0] += 1
+            return wave(*a, **kw)
+        e._prefill_wave = counted
 
     def reset():
         waves[0] = 0
         for fn in counters.values():
             fn.launches = 0
 
-    model.prefill_into_pages = counted
-    try:
-        reset()
-        with LogitTap() as tap_k:
-            eng, streams, wall, cpu = _paged_drain(torch, params, cfg, seed)
-        launches = {k: fn.launches for k, fn in counters.items()}
-        n_waves = waves[0]
-        reset()
-        with dispatch.override(kernels=False):
-            ref_eng, ref, ref_wall, _ = _paged_drain(torch, params, cfg,
-                                                     seed)
-        plain_launches = {k: fn.launches for k, fn in counters.items()}
-    finally:
-        model.prefill_into_pages = prefill_pages
+    def launched():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # The K1 timings above left the head's quantization temporaries cached
+    # in the allocator's default pool, where the engine's graph pool
+    # cannot reuse them.
+    release(torch)
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    eng, streams, wall, cpu = _paged_drain(torch, params, cfg, seed,
+                                           setup=count_waves)
+    launches, n_waves = launched(), waves[0]
+    graph_note("mla paged", eng, torch)
     st = eng.stats()
     new = int(st["new_tokens"])
     print(f"mla paged: drained {int(st['finished'])} requests, {new} tokens "
@@ -2329,6 +2696,42 @@ def phase_mla(torch, cfg, seed: int) -> dict:
         "radix_hits", "radix_hit_rate", "radix_nodes", "radix_evictions",
         "pool_pages_total", "pool_pages_in_use", "pool_pages_free")),
         flush=True)
+    layers = cfg.n_layers
+    check(sorted(streams) == list(range(8))
+          and all(len(t) == 16 for t in streams.values()),
+          "mla paged: 8 requests of 16 tokens")
+    check(launches["K5"] == layers * eng.steps and launches["K4"] == 0,
+          f"mla paged: {launches['K5']} K5 launches in {eng.steps} steps")
+    check(n_waves > 0 and launches["K6"] == 2 * layers * n_waves,
+          f"mla paged: {launches['K6']} K6 launches in {n_waves} waves")
+    check(launches["K1"] > 0 and launches["K3"] > 0,
+          f"mla paged: launches {launches}")
+    check(st["radix_hits"] >= 1, "mla paged: no radix hit")
+    check(eng.pool.conserved(), "mla paged: pool not conserved")
+    check(not bool(eng.state.cache.layers[0].pt.any()),
+          "mla paged: page tables not all-trash after the drain")
+    g_eng, k_steps = (snap(eng), streams, launches), eng.steps
+    hold_warm("mla paged", eng, lambda: _paged_drain(torch, params, cfg,
+                                                     seed, eng=eng))
+    # One engine's graphs at a time: their shared pool holds the head's
+    # quantization temporaries, as large as an eager step's.
+    del eng
+    release(torch)
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    with LogitTap() as tap_k:   # the kernel drain's logits, on its twin
+        e_eng, e_streams, e_wall, _ = _paged_drain(torch, params, cfg, seed,
+                                                   graphs=False)
+    print(f"mla paged: eager drain in {e_wall:.2f}s: wall_ms_per_step="
+          f"{1e3 * e_wall / e_eng.steps:.1f} peak_mem_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+    hold_graphs("mla paged", g_eng, (snap(e_eng), e_streams, launched()))
+    del e_eng, g_eng
+    reset()
+    with dispatch.override(kernels=False):
+        ref_eng, ref, ref_wall, _ = _paged_drain(torch, params, cfg, seed,
+                                                 graphs=False)
+    plain_launches = launched()
     same = sorted(u for u in streams if u in ref and streams[u] == ref[u])
     firsts = sorted(streams) == sorted(ref) and all(
         streams[u][0] == ref[u][0] for u in streams)
@@ -2341,58 +2744,39 @@ def phase_mla(torch, cfg, seed: int) -> dict:
                      if a != b), None)
         print(f"mla paged: uid {u} first differs at token {step}",
               flush=True)
-    layers = cfg.n_layers
-    check(sorted(streams) == list(range(8))
-          and all(len(t) == 16 for t in streams.values()),
-          "mla paged: 8 requests of 16 tokens")
     check(firsts, "mla paged: first tokens differ between kernels and plain")
     check(len(same) >= PAGED_MIN_SAME, f"mla paged: only {len(same)}/8 "
           "streams identical")
-    check(launches["K5"] == layers * eng.steps and launches["K4"] == 0,
-          f"mla paged: {launches['K5']} K5 launches in {eng.steps} steps")
-    check(n_waves > 0 and launches["K6"] == 2 * layers * n_waves,
-          f"mla paged: {launches['K6']} K6 launches in {n_waves} waves")
-    check(launches["K1"] > 0 and launches["K3"] > 0,
-          f"mla paged: launches {launches}")
-    check(st["radix_hits"] >= 1, "mla paged: no radix hit")
-    check(eng.pool.conserved() and ref_eng.pool.conserved(),
-          "mla paged: pool not conserved")
-    check(not bool(eng.state.cache.layers[0].pt.any()),
-          "mla paged: page tables not all-trash after the drain")
+    check(ref_eng.pool.conserved(), "mla paged: plain drain's pool")
     check(all(v == 0 for v in plain_launches.values()),
           f"mla paged: the plain drain launched {plain_launches}")
     del ref_eng
+    release(torch)
 
     # The same requests, speculative (ngram, SPEC_K) and chunked together,
-    # against the kernel drain above.
+    # against the kernel drain above, with graphs and then eagerly.
     from repro_torch.serve.spec import SpecConfig
 
+    sc_kw = dict(spec=SpecConfig(k=SPEC_K), chunk_tokens=MLA_CHUNK)
     reset()
-    with LogitTap() as tap_sc, RowCount(kpa, "_mla_kernel") as k5_rows:
-        sc_eng, sc, sc_wall, _ = _paged_drain(
-            torch, params, cfg, seed, spec=SpecConfig(k=SPEC_K),
-            chunk_tokens=MLA_CHUNK)
-    sc_launches = {k: fn.launches for k, fn in counters.items()}
+    torch.cuda.reset_peak_memory_stats()
+    sc_eng, sc, sc_wall, _ = _paged_drain(torch, params, cfg, seed, **sc_kw)
+    sc_launches = launched()
     sc_st = sc_eng.stats()
+    graph_note("mla spec+chunked", sc_eng, torch)
     print(f"mla spec+chunked: drained {int(sc_st['finished'])} requests in "
           f"{sc_wall:.2f}s: tok/s={sc_st['new_tokens'] / sc_wall:.2f} "
-          f"steps={sc_eng.steps} (kernel drain {eng.steps}) chunk_waves="
-          f"{sc_eng.chunk_waves} accepted {int(sc_st['spec_accepted'])} of "
-          f"{int(sc_st['spec_proposed'])} drafts; launches={sc_launches}; "
-          f"K5 launches by rows {k5_rows.rows}; peak_mem_GB="
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
-    rep_sc = divergence_report("spec+chunked vs the kernel drain",
-                               ("spec+chunked", sc, tap_sc.table()),
-                               ("kernels", streams, tap_k.table()),
-                               phase="mla", first_ok=True)
+          f"steps={sc_eng.steps} (kernel drain {k_steps}) "
+          f"chunk_waves={sc_eng.chunk_waves} accepted "
+          f"{int(sc_st['spec_accepted'])} of {int(sc_st['spec_proposed'])} "
+          f"drafts; launches={sc_launches}; peak_mem_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}; streams digest "
+          f"{digest(sc)}", flush=True)
     check(sorted(sc) == list(range(8)) and all(
         len(t) == 16 for t in sc.values()),
         "mla spec+chunked: 8 requests of 16 tokens")
-    check(rep_sc["near_ties"], "mla spec+chunked: a divergence from the "
-          "kernel drain that is not a near-tie flip")
-    check(k5_rows.rows.get(VERIFY_ROWS, 0) > 0
-          and sc_launches["K5"] == layers * sc_eng.steps,
-          f"mla spec+chunked: K5 launches {k5_rows.rows} in "
+    check(sc_launches["K5"] == layers * sc_eng.steps,
+          f"mla spec+chunked: {sc_launches['K5']} K5 launches in "
           f"{sc_eng.steps} steps")
     check(sc_eng.chunk_waves > 0, "mla spec+chunked: no chunk wave")
     check(sc_eng.pool.conserved() and sc_eng.pool.pages_in_use
@@ -2400,10 +2784,41 @@ def phase_mla(torch, cfg, seed: int) -> dict:
           "mla spec+chunked: pool not conserved")
     check(torch.cuda.max_memory_allocated() < 80e9,
           "mla spec+chunked: peak device memory >= 80 GB")
-    del eng, sc_eng
+    g_sc = (snap(sc_eng), sc, sc_launches)
+    hold_warm("mla spec+chunked", sc_eng, lambda: _paged_drain(
+        torch, params, cfg, seed, eng=sc_eng))
+    del sc_eng
+    release(torch)
+    # Its eager twin, drained after every other drain of this phase: the
+    # graph drain's gate (identical streams), and the logits and K5
+    # launches by rows of the spec+chunked streams.
+    reset()
+    with LogitTap() as tap_sc, RowCount(kpa, "_mla_kernel") as k5_rows:
+        e_sc_eng, e_sc, e_sc_wall, _ = _paged_drain(
+            torch, params, cfg, seed, graphs=False, **sc_kw)
+    print(f"mla spec+chunked: eager drain in {e_sc_wall:.2f}s; K5 launches "
+          f"by rows {k5_rows.rows}", flush=True)
+    hold_graphs("mla spec+chunked", g_sc, (snap(e_sc_eng), e_sc,
+                                           launched()))
+    check(k5_rows.rows.get(VERIFY_ROWS, 0) > 0
+          and sum(k5_rows.rows.values()) == layers * e_sc_eng.steps,
+          f"mla spec+chunked: K5 launches {k5_rows.rows} in "
+          f"{e_sc_eng.steps} steps")
+    rep_sc = divergence_report("spec+chunked vs the kernel drain",
+                               ("spec+chunked", e_sc, tap_sc.table()),
+                               ("kernels", streams, tap_k.table()),
+                               phase="mla", first_ok=True)
+    check(rep_sc["near_ties"], "mla spec+chunked: a divergence from the "
+          "kernel drain that is not a near-tie flip")
+    check(rep_sc["same"] >= MLA_SPEC_CHUNKED_SAME,
+          f"mla spec+chunked: {rep_sc['same']}/8 streams equal the kernel "
+          f"drain's (gate >= {MLA_SPEC_CHUNKED_SAME})")
+    del e_sc_eng, g_sc
+    release(torch)
 
-    def dense_drain():
-        e = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed)
+    def dense_drain(**kw):
+        e = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed,
+                   min_bucket=MIN_BUCKET, **kw)
         for req in _mla_dense_requests(cfg, seed):
             e.submit(req)
         t0 = time.monotonic()
@@ -2414,13 +2829,16 @@ def phase_mla(torch, cfg, seed: int) -> dict:
 
     reset()
     d_eng, dense, d_wall = dense_drain()
-    d_launches = {k: fn.launches for k, fn in counters.items()}
+    d_launches = launched()
+    graph_note("mla dense", d_eng, torch)
+    del d_eng
+    release(torch)
     with dispatch.override(kernels=False):
-        _, d_ref, d_ref_wall = dense_drain()
+        _, d_ref, d_ref_wall = dense_drain(graphs=False)
     print(f"mla dense: drained 4 requests ({DENSE_NEW} new tokens, uid 2 "
-          f"at temperature 0.8) in {d_wall:.2f}s, steps={d_eng.steps}, "
-          f"launches={d_launches}; plain versions in {d_ref_wall:.2f}s; "
-          f"streams identical={dense == d_ref}; peak_mem_GB="
+          f"at temperature 0.8) in {d_wall:.2f}s, launches={d_launches}; "
+          f"plain versions in {d_ref_wall:.2f}s; streams identical="
+          f"{dense == d_ref}; peak_mem_GB="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
     check(sorted(dense) == list(range(4))
           and all(len(t) == DENSE_NEW for t in dense.values()),
@@ -2430,6 +2848,40 @@ def phase_mla(torch, cfg, seed: int) -> dict:
           and d_launches["K5"] == 0, f"mla dense: launches {d_launches}")
     print(f"mla: phase in {time.monotonic() - t_phase:.1f}s", flush=True)
     return launches, k1_rec
+
+
+FAILED_CAPTURE = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, "src")
+from repro_torch.serve.request import StepGraphs, launch_counters
+g = StepGraphs("cuda", capture=True)
+calls = []
+def fn(x):
+    calls.append(1)
+    return (x * float(x.sum().item()),)   # a host sync: capture refuses it
+try:
+    g.call("sync", fn, np.ones(4, np.float32))
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0][:120])
+    assert "sync" not in g.counts and len(calls) == 2, (g.counts, calls)
+    assert all(f.launches == 0 for f in launch_counters())
+    print("ok")
+"""
+
+
+def phase_graphs() -> None:
+    """A capture that fails raises, in a process of its own: the step is
+    not counted and not run eagerly in its place (its function ran twice,
+    the warm-up and the refused capture)."""
+    run = subprocess.run([sys.executable, "-c", FAILED_CAPTURE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    print("graphs: a failed capture: " + " | ".join(
+        run.stdout.strip().splitlines()), flush=True)
+    check(run.returncode == 0 and run.stdout.strip().endswith("ok"),
+          f"graphs: a failed capture did not raise as it should: "
+          f"{run.stderr.strip()[-400:]}")
 
 
 def main(argv=None) -> int:
@@ -2482,6 +2934,7 @@ def main(argv=None) -> int:
     def timed(name, fn, *a):
         t0 = time.monotonic()
         out = fn(*a)
+        release(torch)
         print(f"phase {name}: {time.monotonic() - t0:.1f}s", flush=True)
         return out
 
@@ -2514,13 +2967,15 @@ def main(argv=None) -> int:
                     launches[name] = timed(name, fn, torch, cfg, args.seed,
                                            params)
             del params
+            release(torch)
         if "train" in phases:
             launches["train"] = timed("train", phase_train, torch, cfg,
                                       args.seed)
-            torch.cuda.empty_cache()
         if "mla" in phases:
             launches["mla"], recs["K1 mla"] = timed(
                 "mla", phase_mla, torch, cfg_mla, args.seed)
+        if phases & ({name for name, _ in serving} | {"mla"}):
+            timed("graphs", phase_graphs)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1

@@ -67,10 +67,10 @@ def adc_constants(cfg: TFConfig, device=None) -> tuple[Tensor, Tensor, Tensor]:
     0-dim f32 tensors; the last one is divided in f32, as the reference
     forms it. Tensors, not Python numbers: CUDA divides by a host scalar
     through its reciprocal, which would round differently."""
-    fs = torch.tensor(float(cfg.block * cfg.max_significand**2),
-                      dtype=torch.float32, device=device)
-    levels = torch.tensor(float((1 << cfg.adc_bits) - 1),
-                          dtype=torch.float32, device=device)
+    fs = torch.full((), float(cfg.block * cfg.max_significand**2),
+                    dtype=torch.float32, device=device)
+    levels = torch.full((), float((1 << cfg.adc_bits) - 1),
+                        dtype=torch.float32, device=device)
     return fs, levels, fs / levels
 
 

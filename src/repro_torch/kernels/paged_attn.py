@@ -76,7 +76,7 @@ def _norm_splits(n_splits: Optional[int], n_table: int, *, page_size: int,
     largest divisor of the table extent that does not exceed it."""
     if n_splits is None:
         n_splits = autotune.best_n_splits(page_size, heads, head_dim,
-                                          rows=rows)
+                                          rows=rows, pages=n_table)
     n_splits = max(1, min(int(n_splits), n_table))
     while n_table % n_splits:
         n_splits -= 1

@@ -6,12 +6,16 @@ deepseek-v3-671b --n-layers 3`` runs deepseek-v3's three dense MLA layers)
 at full width (random weights from ``--seed``, TimeFloats
 ``mode="pallas"``, bf16 activations) through ``Engine(slots=4,
 max_len=512)``, dense by default and with ``--paged`` on the paged pool
-(16-token pages, fused split-K decode through K4, or K5 for MLA): four
-32-token prompts
-are admitted and warmed up, then ``--steps`` engine steps (one fused
-decode each) run with the profiler off and ``--steps`` more under
+(16-token pages, fused split-K decode through K4, or K5 for MLA), with
+each step callable captured into a CUDA graph and replayed (``--graphs``,
+the engine's default on the card; ``--no-graphs`` runs it eagerly): four
+32-token prompts are admitted and warmed up (the admission wave's and the
+decode's graphs are captured there), then ``--steps`` engine steps (one
+fused decode each) run with the profiler off and ``--steps`` more under
 ``torch.profiler``. It prints:
 
+- the graphs captured while warming up, their capture seconds and the
+  peak device memory;
 - with the profiler off, wall ms per step (host clock around steps that
   end in a synchronize) and the host CPU ms this process spent per step
   (all threads), so their ratio says how busy the host was;
@@ -29,7 +33,7 @@ decode each) run with the profiler off and ``--steps`` more under
 
 Run from the repository root on a machine with an NVIDIA GPU:
 ``PYTHONPATH=src python3 -m repro_torch.launch.profile_decode [--paged]
-[--arch deepseek-v3-671b --n-layers 3]``.
+[--arch deepseek-v3-671b --n-layers 3] [--no-graphs]``.
 """
 from __future__ import annotations
 
@@ -92,9 +96,9 @@ def weight_quant_ms(params, cfg, reps: int = 3) -> float:
 
 
 def profile_steps(params, cfg, *, steps: int, seed: int, top: int,
-                  paged: bool = False) -> None:
+                  paged: bool = False, graphs: bool = True) -> None:
     eng = Engine(params, cfg, slots=4, max_len=512, seed=seed, paged=paged,
-                 device=params["embed"].device)
+                 device=params["embed"].device, graphs=graphs)
     rng = np.random.default_rng(seed)
     for i in range(4):
         eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, 32)
@@ -102,13 +106,20 @@ def profile_steps(params, cfg, *, steps: int, seed: int, top: int,
     eng.step()   # admission wave + first decode
     eng.step()   # one warm decode
     torch.cuda.synchronize()
+    g = eng.graphs
+    print(f"graphs={'on' if g.capture else 'off'}: step callables "
+          f"{sorted(g.counts)} capture_s="
+          + ",".join(f"{k}:{v:.2f}" for k, v in sorted(g.capture_s.items()))
+          + f" peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          flush=True)
     t0, c0 = time.monotonic(), time.process_time()
     for _ in range(steps):
         eng.step()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.monotonic() - t0) / steps
     cpu_ms = 1e3 * (time.process_time() - c0) / steps
-    what = "paged decode step" if paged else "decode step"
+    what = ("paged decode step" if paged else "decode step") + (
+        " (graphs)" if graphs else " (eager)")
     print(f"{what}, profiler off: wall_ms={wall_ms:.3f} "
           f"host_cpu_ms={cpu_ms:.3f} host_cpu_share={cpu_ms / wall_ms:.4f}",
           flush=True)
@@ -164,6 +175,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="override the configuration's depth")
+    ap.add_argument("--graphs", action=argparse.BooleanOptionalAction,
+                    default=True, help="replay captured CUDA graphs (the "
+                    "engine's default); --no-graphs steps eagerly")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
@@ -175,7 +189,7 @@ def main(argv=None) -> int:
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, mode pallas, "
           f"{cfg.dtype}", flush=True)
     profile_steps(params, cfg, steps=args.steps, seed=args.seed,
-                  top=args.top, paged=args.paged)
+                  top=args.top, paged=args.paged, graphs=args.graphs)
     print(f"weights of one step ({len(step_weights(params))}): prescale + "
           f"quantize elapsed_ms={weight_quant_ms(params, cfg):.3f}",
           flush=True)

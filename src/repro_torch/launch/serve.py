@@ -51,6 +51,11 @@ def main(argv=None):
     ap.add_argument("--spec-k", type=int, default=4,
                     help="speculative chain depth (draft tokens per step)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--graphs", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="capture each step callable into a CUDA graph and "
+                    "replay it (default: on for a CUDA device; a CPU "
+                    "engine runs eagerly)")
     args = ap.parse_args(argv)
     if args.spec and args.temperature > 0:
         print("--spec requires greedy decoding (temperature 0)",
@@ -86,7 +91,7 @@ def main(argv=None):
                  seed=args.seed, paged=args.paged, page_size=args.page_size,
                  chunk_tokens=args.chunk_tokens or None,
                  spec=SpecConfig(k=args.spec_k) if args.spec else None,
-                 device=device)
+                 device=device, graphs=args.graphs)
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab_size,
                           size=args.prefix_len).astype(np.int32)
@@ -114,10 +119,19 @@ def main(argv=None):
           f"in {dt:.1f}s ({new_tokens / max(dt, 1e-9):.1f} tok/s)")
     lats = [f.latency_s for f in done if f.latency_s > 0]
     ttfts = [f.ttft_s for f in done if f.ttft_s > 0]
+    traces = eng.compile_cache_stats()
     print(f"latency p50 {percentile(lats, 50):.2f}s p95 "
           f"{percentile(lats, 95):.2f}s | ttft p50 "
           f"{percentile(ttfts, 50):.2f}s p95 {percentile(ttfts, 95):.2f}s | "
-          f"steps {eng.steps} | host transfers {eng.host_transfers}")
+          f"steps {eng.steps} | compiles: prefill {traces['prefill_total']}, "
+          f"decode {traces['decode_total']} | host transfers "
+          f"{eng.host_transfers}")
+    graphs = eng.graphs
+    print(f"graphs={'on' if graphs.capture else 'off'}: "
+          f"{len(graphs.counts)} step callables "
+          + (f"captured in {sum(graphs.capture_s.values()):.2f}s "
+             if graphs.capture else "")
+          + " ".join(sorted(graphs.counts)))
     st = eng.stats()
     if args.chunk_tokens:
         print(f"chunked: {eng.chunk_waves} chunk waves "

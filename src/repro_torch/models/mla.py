@@ -23,10 +23,16 @@ in the latent space.
   the chain's rows land through ``scatter_rows`` (writes past the row
   drop) and attend one chain column at a time.
 
-The absorption ``q_lat = q_nope · W_k_b`` and the output up-projection
-``o_lat · W_v_b`` stay ``torch.einsum`` in float32, as the reference leaves
-them to XLA. Every projection goes through ``dense``/``dense_in``
-(TimeFloats arithmetic when enabled). Caches are updated in place.
+The absorption ``q_lat = q_nope · W_k_b``, the output up-projection
+``o_lat · W_v_b`` and the latent attention's products are float32 results
+as in the reference, but each is summed in float64 from its operands'
+exact products and then rounded (:func:`_exact_einsum`), as K5 sums. A
+float32 product's summation order is the BLAS's choice, which on the card
+changes with the number of rows a call carries (a chain verify's 20 rows
+against a decode's 4, a chunk against a whole prompt); rounded from a
+float64 sum, the result no longer depends on it. Every projection goes through ``dense``/
+``dense_in`` (TimeFloats arithmetic when enabled). Caches are updated in
+place.
 """
 from __future__ import annotations
 
@@ -105,10 +111,27 @@ def _project_kv_latent(params, x: Tensor, cfg: ModelConfig,
     return c_kv, k_rope
 
 
+def _exact_einsum(eq: str, a: Tensor, b: Tensor) -> Tensor:
+    """``torch.einsum(eq, a, b)`` rounded to float32 from float64 sums.
+    Operands of at most 24 significant bits multiply exactly in float64,
+    and the sum's order moves its float64 rounding by far less than a
+    float32 ulp, so the float32 result changes with the order only where
+    the sum lies that close to a float32 rounding boundary: a call's rows
+    equal the same rows computed in another batch (bitwise on the card at
+    a verify's 20 rows against a decode's 4, chip_smoke.py)."""
+    return torch.einsum(eq, a.to(torch.float64),
+                        b.to(torch.float64)).to(torch.float32)
+
+
+def absorb_query(q_nope: Tensor, wk_b: Tensor) -> Tensor:
+    """q_lat (B, S, H, C) = q_nope (B, S, H, nope) · W_k_b (C, H, nope)."""
+    return _exact_einsum("bshn,chn->bshc", q_nope, wk_b)
+
+
 def _up_project(o_lat: Tensor, wv_b: Tensor, params, cfg: ModelConfig
                 ) -> Tensor:
     """Latent attention output (B, S, H, C) -> the layer's output."""
-    out = torch.einsum("bshc,chv->bshv", o_lat, wv_b.to(torch.float32))
+    out = _exact_einsum("bshc,chv->bshv", o_lat, wv_b)
     return dense_in(out.to(cfg.activation_dtype), params["wo"], cfg)
 
 
@@ -149,8 +172,7 @@ def mla_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig, *,
     wkv_b = params["wkv_b"]                    # (kv_lora, H, nope+v)
     wk_b = wkv_b[..., : m.qk_nope_head_dim]    # (kv_lora, H, nope)
     wv_b = wkv_b[..., m.qk_nope_head_dim:]     # (kv_lora, H, v)
-    q_lat = torch.einsum("bshn,chn->bshc", q_nope.to(torch.float32),
-                         wk_b.to(torch.float32))
+    q_lat = absorb_query(q_nope, wk_b)
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
 
     if isinstance(cache, PagedMLACache):
@@ -203,13 +225,14 @@ def _latent_attention(q_lat: Tensor, q_rope: Tensor, ckf: Tensor,
     """Masked softmax attention in the latent space: queries (B, S, H, C)
     and (B, S, H, R) against the f32 latents (B, S_max, C) and rope keys
     (B, S_max, R); returns (B, S, H, C)."""
-    s_lat = torch.einsum("bshc,bjc->bhsj", q_lat, ckf)
-    s_rope = torch.einsum("bshr,bjr->bhsj", q_rope.to(torch.float32), krf)
+    s_lat = _exact_einsum("bshc,bjc->bhsj", q_lat, ckf)
+    s_rope = _exact_einsum("bshr,bjr->bhsj", q_rope, krf)
     scores = (s_lat + s_rope) * scale  # (B, H, S, S_max)
     kv_pos = torch.arange(ckf.shape[1], device=ckf.device)
     ok = mask_allowed(positions[:, :, None], kv_pos[None, None, :], mask)
     ok = (ok & (kv_pos[None, None, :] < lengths[:, None, None]))[:, None]
     scores = torch.where(ok, scores, NEG)
     e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    p = torch.where(ok, e / e.sum(dim=-1, keepdim=True), 0.0)
-    return torch.einsum("bhsj,bjc->bshc", p, ckf)
+    den = e.to(torch.float64).sum(dim=-1, keepdim=True).to(torch.float32)
+    p = torch.where(ok, e / den, 0.0)
+    return _exact_einsum("bhsj,bjc->bshc", p, ckf)

@@ -377,36 +377,56 @@ def prefill(params: Tree, tokens: Tensor, cfg: ModelConfig,
     return _head(params, last, cfg), ModelCache(tuple(layers), lengths)
 
 
+def slot_ids_tensor(slot_ids, device) -> Tensor:
+    """Wave-row slot ids as an int64 tensor on ``device`` (host arrays are
+    copied; a device tensor is used as it is, so a captured step reads the
+    ids its static buffer holds at replay)."""
+    if isinstance(slot_ids, Tensor):
+        return slot_ids.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(slot_ids, np.int64), device=device)
+
+
+def slot_sources(slot_ids, slots: int, device) -> tuple[Tensor, Tensor]:
+    """For each of ``slots`` cache rows, the first wave row whose id names
+    it and whether any does: ``(src (slots,) int64, has (slots,) bool)``.
+    Ids outside [0, slots) (the drop sentinel ``slots``, negative padding)
+    name no row, so they write nowhere. Fixed shape and no host sync: the
+    device-side form of filtering the ids on the host."""
+    ids = slot_ids_tensor(slot_ids, device)
+    match = ids[None, :] == torch.arange(slots, device=device)[:, None]
+    return match.to(torch.float32).argmax(dim=1), match.any(dim=1)
+
+
+def merge_rows(buf: Tensor, new: Tensor, src: Tensor, has: Tensor) -> None:
+    """``buf[i] = new[src[i]]`` where ``has[i]``, in place; other rows keep
+    what they hold. Bitwise the indexed write of the filtered rows."""
+    keep = has.reshape((-1,) + (1,) * (buf.ndim - 1))
+    buf.copy_(torch.where(keep, new[src].to(buf.dtype), buf))
+
+
 def scatter_cache_rows(full: ModelCache, rows: ModelCache,
-                       slot_ids: np.ndarray) -> ModelCache:
+                       slot_ids) -> ModelCache:
     """Write row j of ``rows`` into batch row ``slot_ids[j]`` of ``full``,
     in place. Ids outside [0, slots) are padding rows and are dropped
-    (never clamped); the ids are host data, so the filter costs no
-    device sync."""
+    (never clamped). ``slot_ids`` is a host array or a device tensor; the
+    write has a fixed shape either way (:func:`slot_sources`)."""
     slots = full.lengths.shape[0]
-    ids = np.asarray(slot_ids)
-    keep = np.nonzero((ids >= 0) & (ids < slots))[0]
-    if keep.size == 0:
-        return full
-    dev = full.lengths.device
-    src = torch.as_tensor(keep, device=dev)
-    dst = torch.as_tensor(ids[keep].astype(np.int64), device=dev)
+    src, has = slot_sources(slot_ids, slots, full.lengths.device)
     for f, r in zip(full.layers, rows.layers):
         for buf, new in zip(f, r):
-            buf[dst] = new[src]
-    full.lengths[dst] = rows.lengths[src].to(full.lengths.dtype)
+            merge_rows(buf, new, src, has)
+    merge_rows(full.lengths, rows.lengths, src, has)
     return full
 
 
-def gather_cache_rows(cache: ModelCache, slot_ids: np.ndarray
-                      ) -> ModelCache:
+def gather_cache_rows(cache: ModelCache, slot_ids) -> ModelCache:
     """Copy per-slot rows out of the slot cache, the inverse of
-    :func:`scatter_cache_rows`. Out-of-range ids clip to row 0: those are
-    padding rows, which the scatter later drops and the chunked prefill
-    runs at length 0, so the copied content is never attended."""
+    :func:`scatter_cache_rows`. Out-of-range ids clamp into [0, slots):
+    those are padding rows, which the scatter later drops and the chunked
+    prefill runs at length 0, so the copied content is never attended."""
     slots = cache.lengths.shape[0]
-    ids = torch.as_tensor(np.clip(np.asarray(slot_ids, np.int64), 0,
-                                  slots - 1), device=cache.lengths.device)
+    ids = torch.clamp(slot_ids_tensor(slot_ids, cache.lengths.device), 0,
+                      slots - 1)
     layers = tuple(type(lc)(*(buf[ids] for buf in lc))
                    for lc in cache.layers)
     return ModelCache(layers=layers, lengths=cache.lengths[ids])
@@ -414,12 +434,13 @@ def gather_cache_rows(cache: ModelCache, slot_ids: np.ndarray
 
 def prefill_into_slots(params: Tree, tokens: Tensor, cfg: ModelConfig,
                        cache: ModelCache, lengths: Tensor,
-                       slot_ids: np.ndarray, *, max_len: int,
+                       slot_ids, *, max_len: int,
                        offsets: Optional[Tensor] = None
                        ) -> tuple[Tensor, ModelCache]:
     """Bucketed batched prefill straight into slot rows: one ragged
     ``prefill`` on a throwaway cache, whose rows (and lengths) then land in
-    ``cache`` at ``slot_ids``; out-of-range ids are padding rows.
+    ``cache`` at ``slot_ids`` (host array or device tensor); out-of-range
+    ids are padding rows.
 
     ``offsets`` (B,) makes it resumable (the chunked-prefill path, DESIGN.md
     §10): the slots' current rows are copied out instead of a zeroed
@@ -437,7 +458,7 @@ def prefill_into_slots(params: Tree, tokens: Tensor, cfg: ModelConfig,
 
 def prefill_into_pages(params: Tree, tokens: Tensor, cfg: ModelConfig,
                        cache: ModelCache, lengths: Tensor, offsets: Tensor,
-                       slot_ids: np.ndarray) -> tuple[Tensor, ModelCache]:
+                       slot_ids) -> tuple[Tensor, ModelCache]:
     """Bucketed batched SUFFIX prefill straight into the shared page pools
     (DESIGN.md §8). Row r holds the tokens of slot ``slot_ids[r]`` from
     absolute position ``offsets[r]`` (its radix-matched, page-aligned
@@ -447,22 +468,19 @@ def prefill_into_pages(params: Tree, tokens: Tensor, cfg: ModelConfig,
     writes the new K/V into the pages the engine assigned it. Ids outside
     [0, slots) are dummy rows: their table view is all-trash and their
     length 0, so they write only to the trash page. Returns (last-valid
-    logits, cache with the rows' lengths set); ``slot_ids`` is host
-    data."""
+    logits, cache with the rows' lengths set); ``slot_ids`` is a host array
+    or a device tensor, and every write has a fixed shape."""
     slots = cache.lengths.shape[0]
-    ids = np.asarray(slot_ids, np.int64)
-    real = (ids >= 0) & (ids < slots)
     dev = cache.lengths.device
+    ids = slot_ids_tensor(slot_ids, dev)
+    real = (ids >= 0) & (ids < slots)
     pt = cache.layers[0].pt
-    view = pt[torch.as_tensor(np.clip(ids, 0, slots - 1), device=dev)]
-    view = torch.where(torch.as_tensor(real, device=dev)[:, None], view, 0)
+    view = torch.where(real[:, None], pt[torch.clamp(ids, 0, slots - 1)], 0)
     rows = ModelCache(layers=tuple(lc._replace(pt=view)
                                    for lc in cache.layers),
                       lengths=lengths)
     logits, _ = prefill(params, tokens, cfg, rows, lengths=lengths,
                         offsets=offsets)
-    keep = np.nonzero(real)[0]
-    if keep.size:
-        cache.lengths[torch.as_tensor(ids[keep], device=dev)] = \
-            lengths[torch.as_tensor(keep, device=dev)].to(torch.int32)
+    src, has = slot_sources(ids, slots, dev)
+    merge_rows(cache.lengths, lengths, src, has)
     return logits, cache

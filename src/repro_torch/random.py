@@ -94,8 +94,10 @@ def uniform(key: Tensor, shape, minval: float = 0.0,
     """``jax.random.uniform`` in float32: [minval, maxval)."""
     bits = (random_bits(key, shape) >> 9) | _ONE_BITS
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # Filled on the device, not copied from the host: a captured step
+    # (CUDA graph) may draw noise.
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -63,8 +63,20 @@ request's uid) and ``counter`` (0 for the prefill token, then one more per
 decode step) that the engine state carries, so tempered streams match the
 reference's token for token as greedy ones do.
 
+- **Compile discipline** (the reference's ``counting_jit`` /
+  ``compile_cache_stats``): every device call of a step is an entry of
+  ``serve/request.StepGraphs``, named as the reference names its jitted
+  callables: ``prefill[<bucket>]``, ``prefill[c<chunk_tokens>]``,
+  ``decode_and_sample`` / ``decode_and_verify`` (``[c<cap>]`` per pow2
+  KV-extent cap on a fused paged engine) and ``draft_prefill[<bucket>]``.
+  On the card each entry is one captured CUDA graph (``graphs``, on by
+  default there), replayed with the step's host arrays copied into its
+  static input buffers; the engine state and the cache are the graphs'
+  static tensors, updated in place. Admission, page tables, scratch pages
+  and the step's one device->host copy stay outside the graphs.
+
 Not ported: the cost scheduler, tracing, metrics, health and the hardware
-twin's energy hooks, ``compile_cache_stats`` (the port compiles nothing).
+twin's energy hooks.
 """
 from __future__ import annotations
 
@@ -81,7 +93,8 @@ from repro_torch.kernels.sampling import sample_tokens
 from repro_torch.models import model as model_lib
 from repro_torch.serve.kvpool import PagePool
 from repro_torch.serve.radix import RadixCache
-from repro_torch.serve.request import Finished, Request, percentile
+from repro_torch.serve.request import (Finished, Request, StepGraphs,
+                                      percentile)
 from repro_torch.serve.sched import Scheduler
 from repro_torch.serve.spec import SpecConfig, chain_accept, propose_ngram
 
@@ -107,38 +120,38 @@ def bucket_for(plen: int, cap: int, min_bucket: int = 8) -> int:
     return min(b, cap)
 
 
-def _admit_update(state: EngineState, cache: model_lib.ModelCache,
-                  logits: Tensor, ids: np.ndarray, temps: Tensor,
-                  budgets: Tensor, tags: Tensor, *, key: Tensor,
-                  eos: Optional[int], slots: int):
+def _admit_update(state: EngineState, logits: Tensor, ids: Tensor,
+                  temps: Tensor, budgets: Tensor, tags: Tensor, *,
+                  key: Tensor, eos: Optional[int], slots: int):
     """Shared tail of every prefill wave: sample the first token, apply the
-    admission updates at ``ids`` (dummy rows, id >= slots, drop) and report
-    per-row done masks. Admission guarantees prompt < max_len, so the first
-    decode write always fits: cache-full can only trigger in decode."""
+    admission updates at ``ids`` (dummy rows, id >= slots, drop) to the
+    state in place, with fixed shapes, and report per-row done masks.
+    Admission guarantees prompt < max_len, so the first decode write always
+    fits: cache-full can only trigger in decode."""
     tok = sample_tokens(logits[:, 0], temps, key, tags,
                         torch.zeros_like(tags))
     rem = budgets - 1
     done = rem <= 0
     if eos is not None:
         done = done | (tok == eos)
-    keep = np.nonzero((ids >= 0) & (ids < slots))[0]
-    dev = tok.device
-    src = torch.as_tensor(keep, device=dev)
-    dst = torch.as_tensor(ids[keep].astype(np.int64), device=dev)
-    state.last_token[dst, 0] = tok[src]
-    state.active[dst] = ~done[src]
-    state.temp[dst] = temps[src]
-    state.remaining[dst] = rem[src]
-    state.counter[dst] = 1
-    state.tag[dst] = tags[src]
-    return state._replace(cache=cache), (tok, done)
+    src, has = model_lib.slot_sources(ids, slots, tok.device)
+    model_lib.merge_rows(state.last_token, tok[:, None], src, has)
+    model_lib.merge_rows(state.active, ~done, src, has)
+    model_lib.merge_rows(state.temp, temps, src, has)
+    model_lib.merge_rows(state.remaining, rem, src, has)
+    model_lib.merge_rows(state.counter, torch.ones_like(tags), src, has)
+    model_lib.merge_rows(state.tag, tags, src, has)
+    return tok, done
 
 
 class Engine:
     """Fixed-slot continuous batching with a fused device step, FCFS
     admission, and optionally the paged cache pool with radix prefix reuse
     (``paged``), chunked prefill (``chunk_tokens``) and speculative
-    decoding (``spec``). ``device`` defaults to the card."""
+    decoding (``spec``). ``device`` defaults to the card. ``graphs``
+    (default: on for a CUDA engine) captures every step callable into a
+    CUDA graph at its first call and replays it after; ``graphs=False``
+    runs the same callables eagerly, and a CPU engine cannot take graphs."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
                  max_len: int = 512, eos_id: Optional[int] = None,
@@ -146,7 +159,8 @@ class Engine:
                  page_size: int = 16, num_pages: Optional[int] = None,
                  fused_decode: Optional[bool] = None,
                  chunk_tokens: Optional[int] = None,
-                 spec: Optional[SpecConfig] = None, device="cuda"):
+                 spec: Optional[SpecConfig] = None, device="cuda",
+                 graphs: Optional[bool] = None):
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -155,6 +169,10 @@ class Engine:
         self.min_bucket = min_bucket
         self.device = torch.device(device)
         self.key = rnd.PRNGKey(seed, self.device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self.graphs = StepGraphs(self.device, capture=graphs)
+        self.decode_launches = 0
         self.paged = paged
         # Fused split-K paged decode: on for paged engines unless asked
         # off; dense engines have no paged kernel to fuse.
@@ -242,6 +260,38 @@ class Engine:
         self._ttfts: List[float] = []
 
     # -- device calls --------------------------------------------------------
+    # Each ``_*_fn`` builds a step callable over the engine's persistent
+    # tensors; it reads its host inputs from static buffers, updates the
+    # state and the cache in place and returns the tensors the step's host
+    # copy reads. ``self.graphs`` runs it (captured on the card).
+
+    def _prefill_fn(self):
+        st, cfg, slots = self.state, self.cfg, self.slots
+
+        def fn(tokens, plens, offs, ids, temps, budgets, tags):
+            if self.paged:
+                logits, _ = model_lib.prefill_into_pages(
+                    self.params, tokens, cfg, st.cache, plens, offs, ids)
+            else:
+                logits, _ = model_lib.prefill_into_slots(
+                    self.params, tokens, cfg, st.cache, plens, ids,
+                    max_len=self.max_len)
+            return _admit_update(st, logits, ids, temps, budgets, tags,
+                                 key=self.key, eos=self.eos_id, slots=slots)
+
+        return fn
+
+    def _draft_prefill_fn(self):
+        """The draft cache's mirror of a bucket wave (``draft="model"``):
+        the same rows, no sampling (the pending token is the target's)."""
+        def fn(tokens, plens, ids):
+            model_lib.prefill_into_slots(
+                self.spec.draft_params, tokens, self.spec.draft_cfg,
+                self._spec_dcache, plens, ids, max_len=self.max_len)
+            return ()
+
+        return fn
+
     def _prefill_wave(self, sb: int, group):
         """One pow2-bucket prefill wave, padded to ``slots`` rows. A paged
         row prefills its prompt from ``skip``, the radix-matched prefix."""
@@ -262,29 +312,31 @@ class Engine:
             temps[r] = req.temperature
             budgets[r] = req.max_new_tokens
             tags[r] = req.uid & 0x7FFFFFFF
-        dev = self.device
-        tok_t = torch.as_tensor(tokens, device=dev)
-        plen_t = torch.as_tensor(plens, device=dev)
-        if self.paged:
-            logits, cache = model_lib.prefill_into_pages(
-                self.params, tok_t, self.cfg, self.state.cache, plen_t,
-                torch.as_tensor(offs, device=dev), ids)
-        else:
-            logits, cache = model_lib.prefill_into_slots(
-                self.params, tok_t, self.cfg, self.state.cache, plen_t, ids,
-                max_len=self.max_len)
         if self._spec_model:
-            # Mirror the wave into the draft cache; the pending token is
-            # the target's.
-            _, self._spec_dcache = model_lib.prefill_into_slots(
-                self.spec.draft_params, tok_t, self.spec.draft_cfg,
-                self._spec_dcache, plen_t, ids, max_len=self.max_len)
-        self.state, out = _admit_update(
-            self.state, cache, logits, ids, torch.as_tensor(temps, device=dev),
-            torch.as_tensor(budgets, device=dev),
-            torch.as_tensor(tags, device=dev), key=self.key, eos=self.eos_id,
-            slots=slots)
-        return out
+            self.graphs.call(f"draft_prefill[{sb}]", self._draft_prefill_fn(),
+                             tokens, plens, ids)
+        return self.graphs.call(f"prefill[{sb}]", self._prefill_fn(),
+                                tokens, plens, offs, ids, temps, budgets,
+                                tags)
+
+    def _chunk_wave_fn(self):
+        """ONE fixed-shape callable for every chunk wave: ``wids`` select
+        the rows written, ``aids`` hold the slot on final-chunk rows and
+        the drop sentinel on mid-chunk rows, so only final chunks admit."""
+        st, cfg, slots = self.state, self.cfg, self.slots
+
+        def fn(tokens, tots, offs, wids, aids, temps, budgets, tags):
+            if self.paged:
+                logits, _ = model_lib.prefill_into_pages(
+                    self.params, tokens, cfg, st.cache, tots, offs, wids)
+            else:
+                logits, _ = model_lib.prefill_into_slots(
+                    self.params, tokens, cfg, st.cache, tots, wids,
+                    max_len=self.max_len, offsets=offs)
+            return _admit_update(st, logits, aids, temps, budgets, tags,
+                                 key=self.key, eos=self.eos_id, slots=slots)
+
+        return fn
 
     def _run_chunk_wave(self):
         """Advance every mid-prefill slot by one chunk in ONE fixed-shape
@@ -318,23 +370,9 @@ class Engine:
                 budgets[r] = req.max_new_tokens
                 tags[r] = req.uid & 0x7FFFFFFF
                 finals.append((r, slot, req))
-        dev = self.device
-        tok_t = torch.as_tensor(tokens, device=dev)
-        tot_t = torch.as_tensor(tots, device=dev)
-        off_t = torch.as_tensor(offs, device=dev)
-        if self.paged:
-            logits, cache = model_lib.prefill_into_pages(
-                self.params, tok_t, self.cfg, self.state.cache, tot_t, off_t,
-                wids)
-        else:
-            logits, cache = model_lib.prefill_into_slots(
-                self.params, tok_t, self.cfg, self.state.cache, tot_t, wids,
-                max_len=self.max_len, offsets=off_t)
-        self.state, out = _admit_update(
-            self.state, cache, logits, aids, torch.as_tensor(temps, device=dev),
-            torch.as_tensor(budgets, device=dev),
-            torch.as_tensor(tags, device=dev), key=self.key, eos=self.eos_id,
-            slots=slots)
+        out = self.graphs.call(f"prefill[c{C}]", self._chunk_wave_fn(),
+                               tokens, tots, offs, wids, aids, temps,
+                               budgets, tags)
         self.chunk_waves += 1
         for _r, slot, req in finals:
             del self._chunking[slot]
@@ -343,34 +381,42 @@ class Engine:
                 self._insert_radix(req, self._slot_pages[slot])
         return finals, out
 
-    def _decode_and_sample(self):
+    def _decode_fn(self, cap: Optional[int]):
         st = self.state
-        logits, cache = model_lib.decode_step(
-            self.params, st.cache, st.last_token, self.cfg,
-            kv_cap=self._decode_cap(), fused_paged=self.fused_decode)
-        tok = sample_tokens(logits[:, 0], st.temp, self.key, st.tag,
-                            st.counter)
-        rem = st.remaining - 1
-        done = (rem <= 0) | (cache.lengths >= self.max_len - 1)
-        if self.eos_id is not None:
-            done = done | (tok == self.eos_id)
-        done = st.active & done
-        self.state = EngineState(
-            cache=cache,
-            last_token=torch.where(st.active[:, None], tok[:, None],
-                                   st.last_token),
-            active=st.active & ~done,
-            temp=st.temp,
-            remaining=torch.where(st.active, rem, st.remaining),
-            counter=st.counter + st.active.to(torch.int32),
-            tag=st.tag)
-        return tok, done
+
+        def fn():
+            logits, cache = model_lib.decode_step(
+                self.params, st.cache, st.last_token, self.cfg, kv_cap=cap,
+                fused_paged=self.fused_decode)
+            tok = sample_tokens(logits[:, 0], st.temp, self.key, st.tag,
+                                st.counter)
+            rem = st.remaining - 1
+            done = (rem <= 0) | (cache.lengths >= self.max_len - 1)
+            if self.eos_id is not None:
+                done = done | (tok == self.eos_id)
+            done = st.active & done
+            # Every new value first, from the old ``active``; then the
+            # in-place writes.
+            last = torch.where(st.active[:, None], tok[:, None],
+                               st.last_token)
+            remaining = torch.where(st.active, rem, st.remaining)
+            counter = st.counter + st.active.to(torch.int32)
+            active = st.active & ~done
+            for buf, new in ((st.cache.lengths, cache.lengths),
+                             (st.last_token, last),
+                             (st.remaining, remaining),
+                             (st.counter, counter), (st.active, active)):
+                buf.copy_(new)
+            return tok, done
+
+        return fn
 
     def _draft_chain(self) -> Tensor:
         """The draft model's chain for every slot, (slots, K): K+1 greedy
         decode steps on the draft cache. K+1, not K: on full acceptance the
         target commits rows n0..n0+K, so the draft cache must hold d_K's
-        row too before the lengths are synced."""
+        row too before the lengths are synced. Runs inside the verify's
+        callable; the draft cache's lengths are synced there."""
         st, k = self.state, self.spec.k
         dc, tok, drafts = self._spec_dcache, st.last_token, []
         for _ in range(k + 1):
@@ -380,52 +426,70 @@ class Engine:
                                st.counter)
             tok = nt[:, None]
             drafts.append(nt)
-        self._spec_dcache = dc
         return torch.stack(drafts[:k], dim=1)
 
-    def _verify_and_accept(self):
-        """The speculative replacement for :meth:`_decode_and_sample`: the
-        target's chain verify over [pending, d_1..d_K], every column
-        sampled by the same sampler as the non-spec step (greedy rows take
-        the lowest-index argmax), the longest accepted prefix kept with the
-        non-spec done predicate per emission, and ``lengths`` rolled back to
-        it. Returns (tokens (slots, K+1), emitted counts, done)."""
+    def _verify_fn(self, cap: Optional[int]):
+        """The speculative replacement for :meth:`_decode_fn`: the target's
+        chain verify over [pending, d_1..d_K], every column sampled by the
+        same sampler as the non-spec step (greedy rows take the
+        lowest-index argmax), the longest accepted prefix kept with the
+        non-spec done predicate per emission, and ``lengths`` rolled back
+        to it. Returns (tokens (slots, K+1), emitted counts, done). An
+        ngram engine reads its drafts from a static input."""
         st = self.state
+
+        def fn(*draft_in):
+            draft = draft_in[0] if draft_in else self._draft_chain()
+            tokens = torch.cat([st.last_token, draft], dim=1)
+            logits, cache = model_lib.verify_step(
+                self.params, st.cache, tokens, self.cfg, kv_cap=cap,
+                fused_paged=self.fused_decode)
+            b, s, v = logits.shape
+            ctrs = (st.counter[:, None] + torch.arange(
+                s, dtype=torch.int32, device=self.device)[None, :]
+                    ).reshape(-1)
+            greedy = sample_tokens(logits.reshape(b * s, v),
+                                   st.temp.repeat_interleave(s), self.key,
+                                   st.tag.repeat_interleave(s), ctrs
+                                   ).reshape(b, s)
+            n0 = st.cache.lengths
+            _emit, e, stop = chain_accept(greedy, draft, st.remaining, n0,
+                                          max_len=self.max_len,
+                                          eos=self.eos_id)
+            done = st.active & stop
+            e_act = torch.where(st.active, e, 0)
+            last = torch.gather(greedy, 1, (e - 1).to(torch.int64)[:, None])
+            lengths = torch.where(st.active, n0 + e, cache.lengths)
+            last = torch.where(st.active[:, None], last, st.last_token)
+            remaining = st.remaining - e_act
+            counter = st.counter + e_act
+            active = st.active & ~done
+            for buf, new in ((st.cache.lengths, lengths),
+                             (st.last_token, last),
+                             (st.remaining, remaining),
+                             (st.counter, counter), (st.active, active)):
+                buf.copy_(new)
+            if self._spec_model:
+                # The draft cache's committed extent follows the target's.
+                self._spec_dcache.lengths.copy_(lengths)
+            return greedy, e_act, done
+
+        return fn
+
+    def _decode_step(self):
+        """The step's decode (or chain verify) through its callable, keyed
+        by the host-picked KV-extent cap."""
+        cap = self._decode_cap()
+        self.decode_launches += 1
+        base = "decode_and_sample" if self.spec is None else \
+            "decode_and_verify"
+        name = base if cap is None else f"{base}[c{cap}]"
+        if self.spec is None:
+            return self.graphs.call(name, self._decode_fn(cap))
         if self._spec_model:
-            draft = self._draft_chain()
-        else:
-            draft = torch.as_tensor(self._build_drafts(), device=self.device)
-        tokens = torch.cat([st.last_token, draft], dim=1)
-        logits, cache = model_lib.verify_step(
-            self.params, st.cache, tokens, self.cfg,
-            kv_cap=self._decode_cap(), fused_paged=self.fused_decode)
-        b, s, v = logits.shape
-        ctrs = (st.counter[:, None] + torch.arange(
-            s, dtype=torch.int32, device=self.device)[None, :]).reshape(-1)
-        greedy = sample_tokens(logits.reshape(b * s, v),
-                               st.temp.repeat_interleave(s), self.key,
-                               st.tag.repeat_interleave(s), ctrs
-                               ).reshape(b, s)
-        n0 = st.cache.lengths
-        _emit, e, stop = chain_accept(greedy, draft, st.remaining, n0,
-                                      max_len=self.max_len, eos=self.eos_id)
-        done = st.active & stop
-        e_act = torch.where(st.active, e, 0)
-        last = torch.gather(greedy, 1, (e - 1).to(torch.int64)[:, None])
-        lengths = torch.where(st.active, n0 + e, cache.lengths)
-        self.state = EngineState(
-            cache=cache._replace(lengths=lengths),
-            last_token=torch.where(st.active[:, None], last, st.last_token),
-            active=st.active & ~done,
-            temp=st.temp,
-            remaining=st.remaining - e_act,
-            counter=st.counter + e_act,
-            tag=st.tag)
-        if self._spec_model:
-            # The draft cache's committed extent follows the target's.
-            self._spec_dcache = self._spec_dcache._replace(
-                lengths=lengths.clone())
-        return greedy, e_act, done
+            return self.graphs.call(name, self._verify_fn(cap))
+        return self.graphs.call(name, self._verify_fn(cap),
+                                self._build_drafts())
 
     def _decode_cap(self) -> Optional[int]:
         """KV-extent cap (tokens) for this step's fused paged decode, or
@@ -657,12 +721,9 @@ class Engine:
         sampled = [req for rows, _ in waves for _, _, req in rows]
         if had_active or any(r.max_new_tokens > 1 for r in sampled):
             self.steps += 1
-            if self.spec is None:
-                dec = self._decode_and_sample()
-            else:
-                if self.paged:
-                    scratch = self._attach_scratch_pages()
-                dec = self._verify_and_accept()
+            if self.spec is not None and self.paged:
+                scratch = self._attach_scratch_pages()
+            dec = self._decode_step()
         if not waves and dec is None:
             return []
         # The step's single device->host copy: tokens + done masks (and a
@@ -739,6 +800,18 @@ class Engine:
             f"{len(self.active) + len(self._chunking)} in flight after "
             f"{max_steps} steps")
 
+    def compile_cache_stats(self) -> Dict[str, int]:
+        """Step callables built per name, as the reference's: each entry is
+        1 (one capture, or one eager callable, per static shape);
+        ``prefill_total`` sums the target's prefill waves (bucket and chunk
+        shapes) and ``decode_total`` the decode or verify cap variants."""
+        stats = dict(self.graphs.counts)
+        stats["prefill_total"] = sum(
+            v for k, v in stats.items() if k.startswith("prefill["))
+        stats["decode_total"] = sum(
+            v for k, v in stats.items() if k.startswith("decode_and_"))
+        return stats
+
     def stats(self) -> Dict[str, float]:
         """Throughput/latency aggregates (zero-request safe); on a paged
         engine the pool and radix counters, on a speculative one the
@@ -753,6 +826,7 @@ class Engine:
             "ttft_p50_s": percentile(self._ttfts, 50),
             "ttft_p95_s": percentile(self._ttfts, 95),
             "chunk_waves": float(self.chunk_waves),
+            "decode_launches": float(self.decode_launches),
         }
         if self.paged:
             out.update({

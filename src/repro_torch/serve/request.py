@@ -1,12 +1,19 @@
 """Shared serving types (port of ``repro.serve.request``): request and
-finished records and the nearest-rank percentile."""
+finished records, the nearest-rank percentile, and :class:`StepGraphs`, the
+counterpart of the reference's ``counting_jit``: an engine's step callables
+built once per static shape and counted, each a captured CUDA graph on the
+card."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import List
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
+
+Tensor = torch.Tensor
 
 
 @dataclasses.dataclass
@@ -39,3 +46,143 @@ def percentile(xs, p: float) -> float:
         return 0.0
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
+
+
+# ---------------------------------------------------------------------------
+# Compile discipline: the counterpart of the reference's ``counting_jit``.
+# ---------------------------------------------------------------------------
+
+def launch_counters() -> tuple:
+    """The kernel wrappers whose ``launches`` attribute counts their
+    launches (K1, K2, K3, K6, K4, K5)."""
+    from repro_torch.kernels import paged, paged_attn, sampling
+    from repro_torch.kernels import timefloats_matmul as tm
+
+    return (tm.timefloats_matmul_quantized,
+            tm.timefloats_matmul_transposed_quantized, sampling.sample,
+            paged.gather_pages, paged_attn.paged_decode_attention,
+            paged_attn.paged_decode_mla)
+
+
+@contextlib.contextmanager
+def launches_set_aside(deltas: List[int]) -> Iterator[None]:
+    """Run a capture: afterwards ``deltas`` holds what each of
+    :func:`launch_counters` counted inside the block, and the counters are
+    back where they were (a capture launches nothing)."""
+    counters = launch_counters()
+    before = [f.launches for f in counters]
+    try:
+        yield
+    finally:
+        deltas[:] = [f.launches - b for f, b in zip(counters, before)]
+        for f, b in zip(counters, before):
+            f.launches = b
+
+
+@dataclasses.dataclass
+class _Entry:
+    inputs: List[Tensor]                     # static input buffers
+    outputs: Optional[List[Tensor]] = None   # static output buffers (graph)
+    graph: Optional[Any] = None              # its torch.cuda.CUDAGraph
+    deltas: List[int] = dataclasses.field(default_factory=list)
+
+    def replay(self) -> tuple:
+        """Replay the graph and count the launches it holds."""
+        self.graph.replay()
+        for f, d in zip(launch_counters(), self.deltas):
+            f.launches += d
+        return tuple(self.outputs)
+
+
+class StepGraphs:
+    """One engine's step callables by name, each created once and counted
+    in ``counts`` as the reference's ``counting_jit`` counts a trace, so
+    ``counts`` is the number of distinct step programs a drain built.
+
+    A call names its entry, the step function and the host arrays it reads.
+    The arrays land in the entry's static input buffers (made at its first
+    call), and the function reads them and the engine's persistent tensors
+    (state, cache, parameters) and returns its output tensors.
+
+    - ``capture=False`` (the CPU, or a CUDA engine with graphs off): every
+      call runs the function eagerly on the static buffers.
+    - ``capture=True`` (CUDA): the first call of a name runs the function
+      eagerly (its warm-up, whose results are the call's: kernel builds,
+      attribute and occupancy queries happen here), then captures it into a
+      ``torch.cuda.CUDAGraph`` whose outputs are copied into static output
+      buffers; every later call copies its inputs in and replays. All of
+      an engine's warm-ups and graphs run on one stream and share one
+      memory pool, so temporaries are held once, not once per graph. Each
+      replay adds to the kernel wrappers' ``launches`` what the capture
+      recorded. A capture that fails raises; nothing falls back to eager.
+    """
+
+    def __init__(self, device, capture: bool):
+        self.device = torch.device(device)
+        if capture and self.device.type != "cuda":
+            raise ValueError("CUDA graphs need a CUDA engine; a CPU engine "
+                             "runs its steps eagerly")
+        if capture and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.capture = capture
+        self.counts: Dict[str, int] = {}
+        self.warm_s: Dict[str, float] = {}     # each graph's eager warm-up
+        self.capture_s: Dict[str, float] = {}  # and its capture
+        self._entries: Dict[str, _Entry] = {}
+        if capture:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.MemPool()
+
+    def call(self, name: str, fn: Callable[..., tuple],
+             *host: np.ndarray) -> tuple:
+        entry = self._entries.get(name)
+        if not self.capture:
+            if entry is None:
+                entry = self._entries[name] = _Entry(self._buffers(host))
+                self.counts[name] = 1
+            else:
+                self._load(entry, host)
+            return tuple(fn(*entry.inputs))
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            if entry is None:
+                out = self._create(name, fn, host)
+            else:
+                self._load(entry, host)
+                out = entry.replay()
+        cur.wait_stream(self._stream)
+        return out
+
+    def _buffers(self, host) -> List[Tensor]:
+        return [torch.tensor(np.asarray(a), device=self.device)
+                for a in host]
+
+    @staticmethod
+    def _load(entry: _Entry, host) -> None:
+        for buf, a in zip(entry.inputs, host):
+            buf.copy_(torch.from_numpy(np.asarray(a)))
+
+    def _create(self, name: str, fn, host) -> tuple:
+        entry = _Entry(self._buffers(host))
+        t0 = time.monotonic()
+        # Memory the allocator keeps cached for eager work cannot serve the
+        # graph pool: hand it back before the warm-up allocates there.
+        torch.cuda.empty_cache()
+        with torch.cuda.use_mem_pool(self._pool, self.device):
+            warm = tuple(fn(*entry.inputs))
+        entry.outputs = [t.clone() for t in warm]
+        del warm
+        torch.cuda.synchronize(self.device)
+        self.warm_s[name] = time.monotonic() - t0
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.monotonic()
+        with launches_set_aside(entry.deltas), torch.cuda.graph(
+                graph, pool=self._pool.id, stream=self._stream):
+            for buf, t in zip(entry.outputs, fn(*entry.inputs)):
+                buf.copy_(t)
+        self.capture_s[name] = time.monotonic() - t0
+        entry.graph = graph
+        self._entries[name] = entry
+        self.counts[name] = 1
+        return tuple(entry.outputs)
