@@ -11,7 +11,10 @@ on any fault:
              (decode M=4, a 4-row prefill wave at every length bucket the
              drain admits, M in {32, 64, 128, 256, 512}, and the training
              step's M = 4 x 256 = 1024; K in {1024, 2048, 3072}, N in
-             {1024, 2048, 3072, 151936}), two ragged (M, K, N), and scales
+             {1024, 2048, 3072, 151936}), the (K, N) of every dense call of
+             the deepseek-v3 training cut at M = 1024 (wq_a, wq_b, wkv_a,
+             wkv_b, wo, gate/up, down, the untied head: K 512-18432, N
+             576-129280), two ragged (M, K, N), and scales
              past the fused arithmetic's exactness argument, with and
              without the fixed 4-bit ADC: bitwise against its plain
              version and on two calls, at the wrapper's plan and (decode,
@@ -21,7 +24,8 @@ on any fault:
              operations, and the sweep over plans.
 4. K2      — the transposed read dx = g @ W^T at the training step's
              M = 1024 and the (K, N) of every projection and the tied head,
-             plus a ragged (M, K, N) = (1000, 1000, 3000): within
+             of every dense call of the deepseek-v3 training cut, plus a
+             ragged (M, K, N) = (1000, 1000, 3000): within
              N * 2^-24 * (|gd| @ |wd|^T) of its plain version elementwise
              (both sum the same exact products in f32, in different
              orders; the worst diff/tol is printed) at the wrapper's split
@@ -169,15 +173,28 @@ logit tap reads each captured step's top logits after every replay.
              at the lookup's split count gated faster than the library call
              at every cap.
 13. train  — the same model and mode, remat="full", AdamW: run_loop for 3
-             steps of batch 4 x 256 from DataPipeline(kind="lm"), with a
-             final checkpoint in a temporary directory. Per step: loss,
-             grad norm, wall and host CPU seconds, K1 and K2 launches
-             (one K2 per dense call; K1 twice for a recomputed block's).
-             Gates: step 0's gradients of the kernels against the plain
-             versions per leaf (cosine and relative error), the same 3
-             steps with the plain versions (step 0's loss bitwise, later
-             losses within 1e-3), finite losses and norms, and the final
-             checkpoint restoring bitwise.
+             steps of batch 4 x 256 from DataPipeline(kind="lm"), the step
+             replaying its captured CUDA graph (make_train_step's default
+             on the card: the first call an eager warm-up, then the
+             capture), with checkpoints at steps 2 and 3 in a temporary
+             directory. Per step: loss, grad norm, wall and host CPU
+             seconds, K1 and K2 launches (one K2 per dense call; K1 twice
+             for a recomputed block's; a replay adds what its capture
+             recorded). Gates: step 0's gradients of the kernels against
+             the plain versions per leaf (cosine and relative error) and
+             its loss bitwise; K1 and K2 launches per step equal to
+             ``train_launches`` (393, 197); the final checkpoint restoring
+             bitwise; a drain resumed from step 2's checkpoint ending
+             bitwise equal to the uninterrupted one, and, as the shape's
+             second drain, capturing nothing; the graph
+             drain against its eager twin (graphs=False, the same initial
+             state) bitwise in every loss, grad norm, parameter and
+             optimizer leaf; 2 steps of in-situ E4M4 updates with
+             stochastic rounding, graphs against eager, bitwise (state
+             and generator); 2 steps with the plain versions (step 0's
+             loss bitwise, step 1's within 1e-3). Prints wall ms and host
+             CPU s per replayed step against the eager step, warm-up and
+             capture seconds and each arm's peak device memory.
 14. mla    — with qwen3's state freed: deepseek-v3 at full width cut to
              its three dense layers (``get_config("deepseek-v3-671b",
              n_layers=3)``: MLA, FFN 18432, vocab 129280, untied head;
@@ -204,7 +221,22 @@ logit tap reads each captured step's top logits after every replay.
              runs on the card), kernels against plain versions: identical
              streams. One engine's graphs are alive at a time. Prints the
              peak device memory.
-15. graphs — in a process of its own, a step whose capture fails (a host
+15. train_mla — deepseek-v3 cut to its first dense layer at every
+             published width (``get_config("deepseek-v3-671b",
+             n_layers=1)``: MLA with 128 heads, FFN 18432, vocab 129280,
+             untied head; 2.437e9 parameters), TimeFloats ``mode="pallas"``,
+             remat="full", SGD without momentum (AdamW's state and SGD's
+             momentum do not fit; the initial state waits on the host),
+             batch 4 x 256.
+             Gates: step 0's loss bitwise and every gradient within
+             K2_COSINE / K2_MAX_REL, kernels against plain versions; a
+             3-step graph drain bitwise equal to its eager twin (losses,
+             grad norms, every parameter leaf); K1 and K2
+             launches per step equal to ``train_launches`` (17, 9); the
+             final checkpoint restoring bitwise. Prints each arm's wall ms
+             per step, a fourth step's device ms (``torch.profiler``) and
+             peak memory.
+16. graphs — in a process of its own, a step whose capture fails (a host
              sync) raises, is not counted and never runs eagerly in place of
              the graph.
 
@@ -263,6 +295,9 @@ SPEC_K = 4                     # draft depth of the speculative drains
 VERIFY_ROWS = SLOTS * (SPEC_K + 1)   # K4/K5 rows of a chain verify: 20
 MLA_LAYERS = 3                 # deepseek-v3's dense layers (first_k_dense)
 MLA_CHUNK = 32                 # chunk_tokens of the MLA spec+chunked drain
+# The MLA training vehicle: deepseek-v3's first dense layer at every
+# published width (2.437e9 parameters; three layers' state does not fit).
+MLA_TRAIN_LAYERS = 1
 # Of its 8 streams, how many must equal the MLA kernel drain's: 7 since its
 # absorption products sum in float64 (3-5 of 8 with float32 einsums, and
 # which ones changed with the phases run before). The eighth parts at an
@@ -270,7 +305,7 @@ MLA_CHUNK = 32                 # chunk_tokens of the MLA spec+chunked drain
 # rows a call carries (PERF.md §7).
 MLA_SPEC_CHUNKED_SAME = 7
 PHASES = ("k1", "k2", "k3", "k6", "k4", "k5", "serve", "paged", "chunked",
-          "spec", "train", "mla")
+          "spec", "train", "mla", "train_mla")
 
 
 class SmokeFailure(Exception):
@@ -348,13 +383,25 @@ def k1_rows(cfg) -> dict:
             "train": TRAIN_B * TRAIN_S}
 
 
+def train_shapes(cfg) -> dict:
+    """(K, N) of every dense call of a training forward and its count:
+    qwen3's projections (``k1_shapes``), or the MLA cut's wq_a, wq_b,
+    wkv_a, wkv_b (the expanded path's up-projection), wo and its MLP, and
+    the head either way."""
+    if cfg.mla is None:
+        return k1_shapes(cfg)
+    m, h = cfg.mla, cfg.n_heads
+    shapes = mla_k1_shapes(cfg)
+    kn = (m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim))
+    shapes[kn] = shapes.get(kn, 0) + cfg.n_layers
+    return shapes
+
+
 def train_launches(cfg) -> tuple[int, int]:
     """(K1, K2) launches of one training step: every dense call's forward
     is one K1 (a checkpointed block's twice: forward and recomputation),
-    its dx one K2; the tied head is outside the blocks."""
-    per_block = sum(k1_shapes(dataclasses.replace(cfg, n_layers=1)).values()
-                    ) - 1
-    blocks = per_block * cfg.n_layers
+    its dx one K2; the head is outside the blocks."""
+    blocks = sum(train_shapes(cfg).values()) - 1
     return (2 if cfg.remat == "full" else 1) * blocks + 1, blocks + 1
 
 
@@ -413,7 +460,7 @@ def k1_hold(torch, km, a, cfgs, what: str, plans=()) -> float:
     return worst
 
 
-def phase_k1(torch, cfg, seed: int) -> dict:
+def phase_k1(torch, cfg, seed: int, cfg_mla_train) -> list:
     from repro_torch.core import timefloats as tf
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import timefloats_matmul as km
@@ -422,16 +469,27 @@ def phase_k1(torch, cfg, seed: int) -> dict:
     sms = _build.sm_count("cuda")
     per_step = k1_shapes(cfg)
     rows = k1_rows(cfg)
-    print(f"K1 rows held: {rows}", flush=True)
+    print(f"K1 rows held: {rows}; deepseek-v3 training (K, N): "
+          f"{sorted(train_shapes(cfg_mla_train))} at M = "
+          f"{TRAIN_B * TRAIN_S}", flush=True)
     cfgs = {adc: tf.TFConfig(mode="pallas", adc_bits=adc, adc_mode="fixed")
             for adc in (None, 4)}
     worst = 0.0
+    paths = ("decode", "train", "mla_train")
     tot = {path: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                  "bytes": 0.0, "ops": 0.0} for path in ("decode", "train")}
-    k1_train = train_launches(cfg)[0]
-    remat = 2 if cfg.remat == "full" else 1
+                  "bytes": 0.0, "ops": 0.0} for path in paths}
+    # qwen3's shapes at every main-path M, then the deepseek-v3 cut's
+    # training calls at the training step's M; a training step runs each
+    # checkpointed block's calls twice, the head once.
+    sets = [(shapes, rws, c.vocab_size, 2 if c.remat == "full" else 1)
+            for c, shapes, rws in (
+                (cfg, per_step, rows),
+                (cfg_mla_train, train_shapes(cfg_mla_train),
+                 {"mla_train": TRAIN_B * TRAIN_S}))]
     slower = []
-    for (k, n), count in per_step.items():
+    for (k, n), count, rows, vocab, remat in (
+            (kn, cnt, rws, v, r) for shapes, rws, v, r in sets
+            for kn, cnt in shapes.items()):
         w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
         # The ADC acts after the MAC, so both configs quantize alike.
         qw = tf.quantize_weight(tf._pow2_prescale(w, cfgs[None])[0],
@@ -457,9 +515,8 @@ def phase_k1(torch, cfg, seed: int) -> dict:
                           @ tf.dequantize_weight(qw, k), reps=10)
             nbytes, nops = k1_traffic(qx.q.shape[0], m, n)
             b_ms, b_by = bound(nbytes, nops)
-            # A training step runs each checkpointed block's calls twice.
-            cnt = count * (remat if label == "train" and n != cfg.vocab_size
-                           else 1)
+            cnt = count * (remat if label in ("train", "mla_train")
+                           and n != vocab else 1)
             if ms >= lib:
                 slower.append((label, m, k, n))
             print(f"K1 {label:9s} M={m:4d} K={k:4d} N={n:6d} bitwise=True "
@@ -530,9 +587,11 @@ def phase_k1(torch, cfg, seed: int) -> dict:
     print(f"K1 slower than dequantize + f32 matmul at: {slower or 'none'}",
           flush=True)
     recs = []
-    for path, what, n_calls in (("decode", "one decode step",
-                                 sum(per_step.values())),
-                                ("train", "one training step", k1_train)):
+    for path, what, n_calls in (
+            ("decode", "one decode step", sum(per_step.values())),
+            ("train", "one training step", train_launches(cfg)[0]),
+            ("mla_train", "one deepseek-v3 training step",
+             train_launches(cfg_mla_train)[0])):
         t = tot[path]
         b_ms, b_by = bound(t["bytes"], t["ops"])
         print(f"K1 per {what} ({n_calls} launches): ms={t['ms']:.4f} "
@@ -571,7 +630,7 @@ K2_SPLITS = (1, 2, 3, 4)       # split counts swept beside the wrapper's rule
 K2_RAGGED = (1000, 1000, 3000)  # (M, K, N) held besides the training shapes
 
 
-def phase_k2(torch, cfg, seed: int) -> dict:
+def phase_k2(torch, cfg, seed: int, cfg_mla_train) -> list:
     from repro_torch.core import timefloats as tf
     from repro_torch.kernels import ops
     from repro_torch.kernels import timefloats_matmul as km
@@ -580,87 +639,101 @@ def phase_k2(torch, cfg, seed: int) -> dict:
     cfg_tf = tf.TFConfig(mode="pallas")
     m = TRAIN_B * TRAIN_S
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    worst_err, worst_share = 0.0, 0.0
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bf16_ms": 0.0,
-           "bytes": 0.0, "ops": 0.0}
-    cases = [(m, k, n, count) for (k, n), count in k1_shapes(cfg).items()]
-    for m_, k, n, count in cases + [(*K2_RAGGED, 0)]:
-        # The stored planes of a (K, N) weight, as the forward read them,
-        # and a streamed gradient g (M, N) quantized along N.
-        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
-        qw = tf.quantize_weight(tf._pow2_prescale(w, cfg_tf)[0], cfg_tf)
-        g = torch.randn(m_, n, generator=gen, device="cuda") * 1e-3
-        qg = tf.quantize_input(tf._pow2_prescale(g, cfg_tf)[0], cfg_tf)
-        a = ops.padded_transposed_operands(qg, qw)
-        d, c = a[0].shape[0], a[2].shape[0]
-        rule = km.k2_splits(a[0].shape[1], c, d, sms)
-        want = km.timefloats_matmul_transposed_plain(*a)
-        tol = k2_tolerance(km, *a)
-        sweep = []
-        for sp in sorted({rule, *(x for x in K2_SPLITS if x <= d)}):
-            got = km.timefloats_matmul_transposed_quantized(*a, cfg=cfg_tf,
-                                                            splits=sp)
-            again = km.timefloats_matmul_transposed_quantized(
-                *a, cfg=cfg_tf, splits=sp)
-            torch.cuda.synchronize()
-            diff = (got - want).abs()
-            share = (diff / tol.clamp_min(1e-38)).max().item()
-            err = diff.max().item()
-            worst_err = max(worst_err, err)
-            worst_share = max(worst_share, share)
-            check(bool((diff <= tol).all()) and bool(torch.isfinite(got).all()),
-                  f"K2 M={m_} K={k} N={n} splits={sp}: kernel outside "
-                  f"N*2^-24*(|gd|@|wd|^T) of plain (max abs {err}, worst "
-                  f"diff/tol {share})")
-            check(torch.equal(got, again), f"K2 M={m_} K={k} N={n} "
-                  f"splits={sp}: two calls on the same inputs differ")
-            t = time_ms(torch, lambda: km.timefloats_matmul_transposed_quantized(
-                *a, cfg=cfg_tf, splits=sp), reps=10)
-            sweep.append((sp, t, share, err))
-        ms = next(t for sp, t, _, _ in sweep if sp == rule)
-        share = max(x for _, _, x, _ in sweep)
-        err = max(e for _, _, _, e in sweep)
-        plain = time_ms(torch, lambda: km.timefloats_matmul_transposed_plain(
-            *a), reps=5, warmup=1)
-        lib = time_ms(torch, lambda: torch.matmul(
-            tf.dequantize_input(qg, n), tf.dequantize_weight(qw, k).T),
-            reps=5, warmup=1)
-        bf16 = time_ms(torch, lambda: torch.matmul(
-            tf.dequantize_input(qg, n, torch.bfloat16),
-            tf.dequantize_weight(qw, k, torch.bfloat16).T), reps=5, warmup=1)
-        nbytes, nops = k2_traffic(m_, n, k)
-        b_ms, b_by = bound(nbytes, nops, BF16_FLOPS_PER_S)
-        print(f"K2 M={m_} K={k:4d} N={n:6d} D={d} splits={rule} (rule) "
-              f"bitwise_repeat=True max_abs={err:.3e} worst_diff/tol="
-              f"{share:.3e} ms={ms:.4f} plain_ms={plain:.4f} "
-              f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"share_of_bound={b_ms / ms:.4f} launches_per_step={count}",
-              flush=True)
-        print(f"K2 M={m_} K={k:4d} N={n:6d} ms by splits " + " ".join(
-            f"{sp}:{t:.4f}" for sp, t, _, _ in sweep) + " worst_diff/tol by "
-            "splits " + " ".join(f"{sp}:{x:.3e}" for sp, _, x, _ in sweep)
-            + f"; information only: bf16 dequantize + bf16 matmul "
-            f"{bf16:.4f} ms", flush=True)
-        tot["ms"] += count * ms
-        tot["plain_ms"] += count * plain
-        tot["library_ms"] += count * lib
-        tot["bf16_ms"] += count * bf16
-        tot["bytes"] += count * nbytes
-        tot["ops"] += count * nops
-    b_ms, b_by = bound(tot["bytes"], tot["ops"], BF16_FLOPS_PER_S)
-    print(f"K2 per training step ({train_launches(cfg)[1]} launches): "
-          f"ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
-          f"library_ms={tot['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-          f"share_of_bound={b_ms / tot['ms']:.4f} worst_diff/tol="
-          f"{worst_share:.3e}; information only: bf16 dequantize + bf16 "
-          f"matmul {tot['bf16_ms']:.4f} ms", flush=True)
-    return {"name": "K2 timefloats_matmul_transposed (one training step)",
+    recs = []
+    # qwen3's training calls and a ragged shape, then the deepseek-v3 cut's
+    # training calls, each at the training step's M.
+    for c_, what, extra in ((cfg, "one training step", [(*K2_RAGGED, 0)]),
+                            (cfg_mla_train, "one deepseek-v3 training step",
+                             [])):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bf16_ms": 0.0,
+               "bytes": 0.0, "ops": 0.0}
+        worst_err, worst_share = 0.0, 0.0
+        cases = [(m, k, n, count)
+                 for (k, n), count in train_shapes(c_).items()] + extra
+        for m_, k, n, count in cases:
+            # The stored planes of a (K, N) weight, as the forward read them,
+            # and a streamed gradient g (M, N) quantized along N.
+            w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+            qw = tf.quantize_weight(tf._pow2_prescale(w, cfg_tf)[0], cfg_tf)
+            g = torch.randn(m_, n, generator=gen, device="cuda") * 1e-3
+            qg = tf.quantize_input(tf._pow2_prescale(g, cfg_tf)[0], cfg_tf)
+            a = ops.padded_transposed_operands(qg, qw)
+            d, c = a[0].shape[0], a[2].shape[0]
+            rule = km.k2_splits(a[0].shape[1], c, d, sms)
+            want = km.timefloats_matmul_transposed_plain(*a)
+            tol = k2_tolerance(km, *a)
+            sweep = []
+            for sp in sorted({rule, *(x for x in K2_SPLITS if x <= d)}):
+                got = km.timefloats_matmul_transposed_quantized(*a, cfg=cfg_tf,
+                                                                splits=sp)
+                again = km.timefloats_matmul_transposed_quantized(
+                    *a, cfg=cfg_tf, splits=sp)
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                share = (diff / tol.clamp_min(1e-38)).max().item()
+                err = diff.max().item()
+                worst_err = max(worst_err, err)
+                worst_share = max(worst_share, share)
+                check(bool((diff <= tol).all())
+                      and bool(torch.isfinite(got).all()),
+                      f"K2 M={m_} K={k} N={n} splits={sp}: kernel outside "
+                      f"N*2^-24*(|gd|@|wd|^T) of plain (max abs {err}, worst "
+                      f"diff/tol {share})")
+                check(torch.equal(got, again), f"K2 M={m_} K={k} N={n} "
+                      f"splits={sp}: two calls on the same inputs differ")
+                t = time_ms(torch, lambda: km.
+                            timefloats_matmul_transposed_quantized(
+                                *a, cfg=cfg_tf, splits=sp), reps=10)
+                sweep.append((sp, t, share, err))
+            ms = next(t for sp, t, _, _ in sweep if sp == rule)
+            share = max(x for _, _, x, _ in sweep)
+            err = max(e for _, _, _, e in sweep)
+            plain = time_ms(torch, lambda: km.
+                            timefloats_matmul_transposed_plain(*a), reps=5,
+                            warmup=1)
+            lib = time_ms(torch, lambda: torch.matmul(
+                tf.dequantize_input(qg, n), tf.dequantize_weight(qw, k).T),
+                reps=5, warmup=1)
+            bf16 = time_ms(torch, lambda: torch.matmul(
+                tf.dequantize_input(qg, n, torch.bfloat16),
+                tf.dequantize_weight(qw, k, torch.bfloat16).T), reps=5,
+                warmup=1)
+            nbytes, nops = k2_traffic(m_, n, k)
+            b_ms, b_by = bound(nbytes, nops, BF16_FLOPS_PER_S)
+            print(f"K2 M={m_} K={k:4d} N={n:6d} D={d} splits={rule} (rule) "
+                  f"bitwise_repeat=True max_abs={err:.3e} worst_diff/tol="
+                  f"{share:.3e} ms={ms:.4f} plain_ms={plain:.4f} "
+                  f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"share_of_bound={b_ms / ms:.4f} launches_per_step={count}",
+                  flush=True)
+            print(f"K2 M={m_} K={k:4d} N={n:6d} ms by splits " + " ".join(
+                f"{sp}:{t:.4f}" for sp, t, _, _ in sweep)
+                + " worst_diff/tol by splits "
+                + " ".join(f"{sp}:{x:.3e}" for sp, _, x, _ in sweep)
+                + f"; information only: bf16 dequantize + bf16 matmul "
+                f"{bf16:.4f} ms", flush=True)
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain
+            tot["library_ms"] += count * lib
+            tot["bf16_ms"] += count * bf16
+            tot["bytes"] += count * nbytes
+            tot["ops"] += count * nops
+        b_ms, b_by = bound(tot["bytes"], tot["ops"], BF16_FLOPS_PER_S)
+        print(f"K2 per {what} ({train_launches(c_)[1]} launches): "
+              f"ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+              f"library_ms={tot['library_ms']:.4f} bound_ms={b_ms:.4f} "
+              f"({b_by}) share_of_bound={b_ms / tot['ms']:.4f} "
+              f"worst_diff/tol={worst_share:.3e}; information only: bf16 "
+              f"dequantize + bf16 matmul {tot['bf16_ms']:.4f} ms", flush=True)
+        recs.append({
+            "name": f"K2 timefloats_matmul_transposed ({what})",
             "route": "cuda",
             "source": "src/repro_torch/csrc/timefloats_matmul_transposed.cu",
             "replaces": "src/repro/kernels/timefloats_matmul.py:132",
             "max_abs_err": worst_err, "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": tot["library_ms"]}
+            "library_ms": tot["library_ms"]})
+    return recs
 
 
 K3_BLOCKS = (4, 8, 16)         # blocks (one cluster) per row, swept
@@ -2119,36 +2192,83 @@ def phase_spec(torch, cfg, seed: int, params) -> dict:
     hold_graphs("spec self-draft", sd_runs[True], sd_runs[False])
     return out
 
-def phase_train(torch, cfg, seed: int) -> dict:
-    from repro_torch import tree as tree_lib
-    from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.data.pipeline import DataPipeline
-    from repro_torch.kernels import dispatch
-    from repro_torch.kernels import sampling as ks
+def train_drain(torch, step_fn, state, pipe, steps: int,
+                ckpt=None, ckpt_every: int = 10**9):
+    """``run_loop`` from ``state`` to step ``steps``; returns the final
+    state and a row per step: loss, grad norm, wall and host CPU seconds,
+    K1 and K2 launches (a replay adds what its capture recorded)."""
     from repro_torch.kernels import timefloats_matmul as km
-    from repro_torch.optim.optimizers import OptimizerConfig
-    from repro_torch.train import step as tsl
     from repro_torch.train.trainer import LoopConfig, run_loop
 
     k1w, k2w = km.timefloats_matmul_quantized, \
         km.timefloats_matmul_transposed_quantized
-    tcfg = tsl.TrainConfig(optimizer=OptimizerConfig(
-        name="adamw", lr=3e-4, warmup=1, total_steps=TRAIN_STEPS))
-    t0 = time.monotonic()
-    state0 = tsl.init_state(cfg, tcfg, seed, "cuda")
-    pipe = DataPipeline(cfg, TRAIN_B, TRAIN_S, seed=seed, kind="lm",
-                        device="cuda")
-    step_fn = tsl.make_train_step(cfg, tcfg)
-    torch.cuda.synchronize()
-    print(f"train: init {cfg.name} (remat={cfg.remat}, AdamW, batch "
-          f"{TRAIN_B} x {TRAIN_S}) in {time.monotonic() - t0:.1f}s",
-          flush=True)
+    seen = []
 
-    # Step 0's gradients, kernels against plain versions (not counted).
-    batch0 = pipe.batch_at(0)
-    m_k, g_k = tsl.loss_and_grads(cfg, state0.params, batch0)
+    def on_metrics(step, m):
+        seen.append(dict(m, k1=k1w.launches, k2=k2w.launches,
+                         cpu=time.process_time()))
+
+    k1w.launches = k2w.launches = 0
+    prev = {"k1": 0, "k2": 0, "cpu": time.process_time()}
+    final, _ = run_loop(state, step_fn, pipe.batch_at, LoopConfig(
+        total_steps=steps, log_every=1, ckpt_every=ckpt_every,
+        ckpt_dir=ckpt), on_metrics=on_metrics)
+    rows = []
+    for m in seen:
+        rows.append({"loss": m["loss"], "grad_norm": m["grad_norm"],
+                     "wall_s": m["step_s"], "cpu_s": m["cpu"] - prev["cpu"],
+                     "K1": m["k1"] - prev["k1"], "K2": m["k2"] - prev["k2"]})
+        prev = m
+    return final, rows
+
+
+def print_rows(what: str, rows: list) -> None:
+    for i, r in enumerate(rows):
+        print(f"{what}: step {i} loss {r['loss']:.6f} grad_norm "
+              f"{r['grad_norm']:.6f} wall_s {r['wall_s']:.3f} host_cpu_s "
+              f"{r['cpu_s']:.3f} K1_launches {r['K1']} K2_launches "
+              f"{r['K2']}", flush=True)
+
+
+def snapshot(torch, state, device: str):
+    """Copies of a state's parameter and optimizer leaves on ``device``,
+    and its generator's state: what a later step may overwrite."""
+    from repro_torch import tree as tree_lib
+
+    copy = lambda t: t.detach().to(device, copy=True)  # noqa: E731
+    return state._replace(params=tree_lib.tree_map(copy, state.params),
+                          opt=tree_lib.tree_map(copy, state.opt),
+                          generator=state.generator.get_state())
+
+
+def same_state(torch, a, b) -> bool:
+    """Step, every parameter and optimizer leaf (by its bits) and the
+    generator state equal; ``b`` may be a :func:`snapshot`, on any
+    device."""
+    from repro_torch import tree as tree_lib
+
+    def bits(t):
+        return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+    gens = [g if isinstance(g, torch.Tensor) else g.get_state()
+            for g in (a.generator, b.generator)]
+    return a.step == b.step and torch.equal(*gens) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(bits(x.to(y.device)), bits(y))
+        for x, y in zip(tree_lib.leaves((a.params, a.opt)),
+                        tree_lib.leaves((b.params, b.opt))))
+
+
+def step0_gates(torch, cfg, params, batch, what: str) -> None:
+    """Step 0's loss bitwise and every leaf's gradient within K2_COSINE /
+    K2_MAX_REL, kernels against plain versions (not counted)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels import dispatch
+    from repro_torch.train import step as tsl
+
+    m_k, g_k = tsl.loss_and_grads(cfg, params, batch)
     with dispatch.override(kernels=False):
-        m_p, g_p = tsl.loss_and_grads(cfg, state0.params, batch0)
+        m_p, g_p = tsl.loss_and_grads(cfg, params, batch)
     cos_min, rel_max = 1.0, 0.0
     for (path, a), b in zip(tree_lib.leaves_with_path(g_k),
                             tree_lib.leaves(g_p)):
@@ -2156,81 +2276,293 @@ def phase_train(torch, cfg, seed: int) -> dict:
         cos = float(a64 @ b64 / (a64.norm() * b64.norm()).clamp_min(1e-300))
         rel = float((a64 - b64).abs().max() / b64.abs().max().clamp_min(
             1e-300))
+        del a64, b64
         cos_min, rel_max = min(cos_min, cos), max(rel_max, rel)
         check(cos >= K2_COSINE and rel <= K2_MAX_REL,
-              f"train: step-0 grad {tree_lib.path_str(path)} kernels vs "
+              f"{what}: step-0 grad {tree_lib.path_str(path)} kernels vs "
               f"plain: cosine {cos}, max rel {rel}")
     check(torch.equal(m_k["loss"], m_p["loss"]),
-          f"train: step-0 loss {m_k['loss'].item()} != plain "
+          f"{what}: step-0 loss {m_k['loss'].item()} != plain "
           f"{m_p['loss'].item()}")
-    print(f"train: step-0 grads kernels vs plain: min cosine {cos_min:.9f} "
+    print(f"{what}: step-0 grads kernels vs plain: min cosine {cos_min:.9f} "
           f"(gate {K2_COSINE}), max |diff|/max|plain| {rel_max:.3e} (gate "
           f"{K2_MAX_REL}); loss bitwise {m_k['loss'].item():.6f}",
           flush=True)
-    del g_k, g_p
 
-    per_step = []
 
-    def on_metrics(step, m):
-        per_step.append(dict(m, k1=k1w.launches, k2=k2w.launches,
-                             cpu=time.process_time()))
+def hold_train(what: str, graph: list, eager: list, k1: int, k2: int
+               ) -> None:
+    """A graph drain's losses and grad norms bitwise equal to its eager
+    twin's, and K1/K2 launches per step equal to ``train_launches`` in
+    both."""
+    for arm, rows in (("graphs", graph), ("eager", eager)):
+        check(all(r["K1"] == k1 and r["K2"] == k2 for r in rows),
+              f"{what} ({arm}): launches per step "
+              f"{[(r['K1'], r['K2']) for r in rows]}, expected {k1} K1 and "
+              f"{k2} K2")
+        check(all(math.isfinite(r[k]) for r in rows
+                  for k in ("loss", "grad_norm")),
+              f"{what} ({arm}): non-finite metrics")
+    for k in ("loss", "grad_norm"):
+        check([r[k] for r in graph] == [r[k] for r in eager],
+              f"{what}: graph {k} {[r[k] for r in graph]} != eager "
+              f"{[r[k] for r in eager]}")
 
+
+def arm_note(what: str, torch, step_fn, rows: list, peak: float) -> None:
+    """Wall ms and host CPU s of a drain's steps after its first (the first
+    of a graph drain is the warm-up and the capture), its graphs' warm-up
+    and capture seconds and its peak device memory."""
+    import statistics
+
+    g = step_fn.graphs
+    later = rows[1:] or rows
+    print(f"{what}: graphs={'on' if g.capture else 'off'} "
+          f"step_programs={g.counts} first step wall_s "
+          f"{rows[0]['wall_s']:.3f}; later steps median wall_ms="
+          f"{1e3 * statistics.median(r['wall_s'] for r in later):.1f} "
+          f"host_cpu_s={statistics.median(r['cpu_s'] for r in later):.3f}; "
+          f"warm_up_s={sum(g.warm_s.values()):.2f} capture_s="
+          f"{sum(g.capture_s.values()):.2f}; peak_mem_GB={peak / 1e9:.2f}",
+          flush=True)
+
+
+def peak_reset(torch) -> None:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+INSITU_STEPS = 2               # the in-situ stochastic-rounding drains
+PLAIN_STEPS = 2                # the training plain-version run
+
+
+def phase_train(torch, cfg, seed: int) -> dict:
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.timefloats import TFConfig
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import sampling as ks
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.train import step as tsl
+
+    opt = dict(name="adamw", lr=3e-4, warmup=1, total_steps=TRAIN_STEPS)
+    tcfg = tsl.TrainConfig(optimizer=OptimizerConfig(**opt))
+    t0 = time.monotonic()
+    state0 = tsl.init_state(cfg, tcfg, seed, "cuda")
+    pipe = DataPipeline(cfg, TRAIN_B, TRAIN_S, seed=seed, kind="lm",
+                        device="cuda")
+    torch.cuda.synchronize()
+    print(f"train: init {cfg.name} (remat={cfg.remat}, AdamW, batch "
+          f"{TRAIN_B} x {TRAIN_S}) in {time.monotonic() - t0:.1f}s",
+          flush=True)
+    step0_gates(torch, cfg, state0.params, pipe.batch_at(0), "train")
+    k1_step, k2_step = train_launches(cfg)
+
+    # The main path: the graph drain (3 steps, checkpoints at 2 and 3).
     with tempfile.TemporaryDirectory() as ckpt:
-        loop = LoopConfig(total_steps=TRAIN_STEPS, log_every=1,
-                          ckpt_every=10**9, ckpt_dir=ckpt)
-        k1w.launches = k2w.launches = ks.sample.launches = 0
-        cpu0 = time.process_time()
+        peak_reset(torch)
+        ks.sample.launches = 0
         t0 = time.monotonic()
-        final, report = run_loop(state0, step_fn, pipe.batch_at, loop,
-                                 on_metrics=on_metrics)
+        step_g = tsl.make_train_step(cfg, tcfg)
+        final, rows_g = train_drain(torch, step_g, state0, pipe, TRAIN_STEPS,
+                                    ckpt=ckpt, ckpt_every=2)
         wall = time.monotonic() - t0
-        launches = {"K1": k1w.launches, "K2": k2w.launches,
+        peak_g = torch.cuda.max_memory_allocated()
+        launches = {"K1": sum(r["K1"] for r in rows_g),
+                    "K2": sum(r["K2"] for r in rows_g),
                     "K3": ks.sample.launches}
-        prev = {"k1": 0, "k2": 0, "cpu": cpu0}
-        for i, m in enumerate(per_step):
-            print(f"train: step {i} loss {m['loss']:.6f} grad_norm "
-                  f"{m['grad_norm']:.6f} wall_s {m['step_s']:.3f} "
-                  f"host_cpu_s {m['cpu'] - prev['cpu']:.3f} K1_launches "
-                  f"{m['k1'] - prev['k1']} K2_launches {m['k2'] - prev['k2']}",
-                  flush=True)
-            prev = m
-        print(f"train: {TRAIN_STEPS} steps + final checkpoint in "
-              f"{wall:.2f}s; launches {launches}; peak_mem_GB="
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+        check(step_g.graphs.capture and len(step_g.graphs.counts) == 1,
+              f"train: step programs {step_g.graphs.counts}")
+        print_rows("train (graphs)", rows_g)
+        print(f"train: {TRAIN_STEPS} steps + checkpoints in {wall:.2f}s; "
+              f"launches {launches}", flush=True)
+        want = snapshot(torch, final, "cuda")
         mgr = CheckpointManager(ckpt)
-        check(mgr.latest_step() == TRAIN_STEPS,
+        check(mgr.all_steps() == [2, TRAIN_STEPS],
               f"train: checkpoints {mgr.all_steps()}")
         t0 = time.monotonic()
         back = mgr.restore(TRAIN_STEPS, final)
-        same = back.step == final.step and all(
-            torch.equal(a, b) for a, b in zip(
-                tree_lib.leaves((final.params, final.opt)),
-                tree_lib.leaves((back.params, back.opt))))
+        same = same_state(torch, back, want)
         print(f"train: restored step {back.step} bitwise={same} in "
               f"{time.monotonic() - t0:.1f}s", flush=True)
         check(same, "train: the final checkpoint does not restore bitwise")
         del back
-    k1_step, k2_step = train_launches(cfg)
-    check(launches == {"K1": TRAIN_STEPS * k1_step,
-                       "K2": TRAIN_STEPS * k2_step, "K3": 0},
+        # Resume: step 2's checkpoint, copied into buffers that have moved
+        # on to step 3, and one more replay. It is the shape's second
+        # drain, so it captures nothing.
+        cap = dict(step_g.graphs.capture_s)
+        resumed, rows_r = train_drain(torch, step_g, mgr.restore(2, state0),
+                                      pipe, TRAIN_STEPS)
+        same = same_state(torch, resumed, want) and \
+            rows_r[0]["loss"] == rows_g[-1]["loss"]
+        print(f"train: resumed from step 2's checkpoint: step "
+              f"{resumed.step} bitwise={same} with the uninterrupted drain; "
+              f"step programs {step_g.graphs.counts}, capture_s "
+              f"{step_g.graphs.capture_s}", flush=True)
+        check(same, "train: the drain resumed from step 2 differs")
+        check(step_g.graphs.counts == {k: 1 for k in cap}
+              and step_g.graphs.capture_s == cap,
+              f"train: the resumed drain captured again: "
+              f"{step_g.graphs.counts}")
+    check(launches["K3"] == 0 and launches["K1"] == TRAIN_STEPS * k1_step
+          and launches["K2"] == TRAIN_STEPS * k2_step,
           f"train: launches {launches}, expected {k1_step} K1 and "
           f"{k2_step} K2 per step")
-    check(all(math.isfinite(m[k]) for m in per_step
-              for k in ("loss", "grad_norm")), "train: non-finite metrics")
+    arm_note("train (graphs)", torch, step_g, rows_g, peak_g)
+    del step_g, final, resumed
+    release(torch)
 
-    k1w.launches = k2w.launches = 0
+    # Its eager twin, from the same initial state.
+    peak_reset(torch)
+    step_e = tsl.make_train_step(cfg, tcfg, graphs=False)
+    final_e, rows_e = train_drain(torch, step_e, state0, pipe, TRAIN_STEPS)
+    print_rows("train (eager)", rows_e)
+    arm_note("train (eager)", torch, step_e, rows_e,
+             torch.cuda.max_memory_allocated())
+    hold_train("train", rows_g, rows_e, k1_step, k2_step)
+    same = same_state(torch, final_e, want)
+    print(f"train: graph drain against its eager twin: losses, grad norms "
+          f"and every parameter and optimizer leaf bitwise={same}",
+          flush=True)
+    check(same, "train: the graph drain's state differs from the eager one")
+    del step_e, final_e, want
+    release(torch)
+
+    # In-situ E4M4 updates with stochastic rounding, graphs against eager.
+    tcfg_in = tsl.TrainConfig(optimizer=OptimizerConfig(
+        **opt, insitu=TFConfig(), stochastic_rounding=True))
+    state_in = tsl.init_state(cfg, tcfg_in, seed, "cuda")
+    arms = {}
+    for graphs in (None, False):
+        fn = tsl.make_train_step(cfg, tcfg_in, graphs=graphs)
+        fin, rows = train_drain(torch, fn, state_in, pipe, INSITU_STEPS)
+        arms[graphs] = (snapshot(torch, fin, "cuda"), rows)
+        del fn, fin
+        release(torch)
+    (snap_g, rows_gi), (snap_e, rows_ei) = arms[None], arms[False]
+    same = same_state(torch, snap_g, snap_e)
+    print(f"train: in-situ E4M4 with stochastic rounding, {INSITU_STEPS} "
+          f"steps: losses graphs {[r['loss'] for r in rows_gi]} eager "
+          f"{[r['loss'] for r in rows_ei]}; state and generator "
+          f"bitwise={same}", flush=True)
+    hold_train("train in-situ", rows_gi, rows_ei, k1_step, k2_step)
+    check(same, "train: in-situ graph drain differs from its eager twin")
+    del arms, snap_g, snap_e, state_in
+    release(torch)
+
+    # The plain versions, eagerly (step 0 bitwise, later steps close).
     with dispatch.override(kernels=False):
-        _, ref = run_loop(state0, step_fn, pipe.batch_at, LoopConfig(
-            total_steps=TRAIN_STEPS, log_every=1))
-    print(f"train: plain versions' losses {ref.losses}; kernels' "
-          f"{report.losses}", flush=True)
-    check(k1w.launches == 0 and k2w.launches == 0,
+        _, rows_p = train_drain(torch, tsl.make_train_step(
+            cfg, tcfg, graphs=False), state0, pipe, PLAIN_STEPS)
+    ref = [r["loss"] for r in rows_p]
+    got = [r["loss"] for r in rows_g]
+    print(f"train: plain versions' losses {ref}; kernels' {got}", flush=True)
+    check(all(r["K1"] == 0 and r["K2"] == 0 for r in rows_p),
           "train: the plain run launched a kernel")
-    check(report.losses[0] == ref.losses[0],
-          f"train: step-0 loss {report.losses[0]} != plain {ref.losses[0]}")
-    for i, (a, b) in enumerate(zip(report.losses, ref.losses)):
+    check(got[0] == ref[0], f"train: step-0 loss {got[0]} != plain {ref[0]}")
+    for i, (a, b) in enumerate(zip(got, ref)):
         check(abs(a - b) <= LOSS_RTOL * abs(b),
               f"train: step {i} loss {a} vs plain {b}")
+    return launches
+
+
+def device_ms(torch, fn) -> tuple[float, int]:
+    """Device ms and kernel launches of one call of ``fn``, as
+    ``torch.profiler`` records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in ks) / 1e3,
+            sum(e.count for e in ks))
+
+
+# The MLA training vehicle's optimizer: SGD without momentum. AdamW's three
+# 9.75 GB trees in the step's buffers, or SGD's two with momentum, beside
+# the gradients and the head's quantization temporaries (a 46 GiB pool),
+# do not fit in 80 GB (PERF.md §4).
+MLA_TRAIN_OPT = dict(name="sgd", momentum=0.0, lr=3e-4, warmup=1,
+                     total_steps=TRAIN_STEPS)
+
+
+def phase_train_mla(torch, cfg, seed: int) -> dict:
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.train import step as tsl
+
+    tcfg = tsl.TrainConfig(optimizer=OptimizerConfig(**MLA_TRAIN_OPT))
+    t0 = time.monotonic()
+    state = tsl.init_state(cfg, tcfg, seed, "cuda")
+    pipe = DataPipeline(cfg, TRAIN_B, TRAIN_S, seed=seed, kind="lm",
+                        device="cuda")
+    # The initial state waits on the host: beside the step's buffers and
+    # the head's quantization temporaries a second copy on the card does
+    # not fit (PERF.md §4). The step-0 gates use its parameters on the card.
+    state0, params = tsl.on_host(state), state.params
+    del state
+    release(torch)
+    n_params = sum(p.numel() for p in tree_lib.leaves(params))
+    print(f"train_mla: init {cfg.name} cut to {cfg.n_layers} dense layer "
+          f"({n_params / 1e9:.3f}e9 parameters, remat={cfg.remat}, "
+          f"{MLA_TRAIN_OPT['name']} momentum {MLA_TRAIN_OPT['momentum']}, "
+          f"batch {TRAIN_B} x {TRAIN_S}) in {time.monotonic() - t0:.1f}s",
+          flush=True)
+    step0_gates(torch, cfg, params, pipe.batch_at(0), "train_mla")
+    del params
+    release(torch)
+    k1_step, k2_step = train_launches(cfg)
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        peak_reset(torch)
+        step_g = tsl.make_train_step(cfg, tcfg)
+        final, rows_g = train_drain(torch, step_g, state0, pipe, TRAIN_STEPS,
+                                    ckpt=ckpt)
+        peak_g = torch.cuda.max_memory_allocated()
+        launches = {"K1": sum(r["K1"] for r in rows_g),
+                    "K2": sum(r["K2"] for r in rows_g)}
+        print_rows("train_mla (graphs)", rows_g)
+        want = snapshot(torch, final, "cpu")
+        dev_g = device_ms(torch, lambda: step_g(final, pipe.batch_at(3)))
+        t0 = time.monotonic()
+        back = CheckpointManager(ckpt).restore(TRAIN_STEPS, want._replace(
+            generator=final.generator))
+        same = same_state(torch, back, want)
+        print(f"train_mla: restored step {back.step} bitwise={same} in "
+              f"{time.monotonic() - t0:.1f}s", flush=True)
+        check(same, "train_mla: the final checkpoint does not restore "
+              "bitwise")
+        arm_note("train_mla (graphs)", torch, step_g, rows_g, peak_g)
+        del back, final, step_g
+        release(torch)
+
+    peak_reset(torch)
+    step_e = tsl.make_train_step(cfg, tcfg, graphs=False)
+    final_e, rows_e = train_drain(torch, step_e, state0, pipe, TRAIN_STEPS)
+    peak_e = torch.cuda.max_memory_allocated()
+    print_rows("train_mla (eager)", rows_e)
+    hold_train("train_mla", rows_g, rows_e, k1_step, k2_step)
+    same = same_state(torch, final_e, want)
+    print(f"train_mla: graph drain against its eager twin: losses, grad "
+          f"norms and every parameter leaf bitwise={same}", flush=True)
+    check(same, "train_mla: the graph drain's state differs from the eager "
+          "one")
+    dev_e = device_ms(torch, lambda: step_e(final_e, pipe.batch_at(3)))
+    arm_note("train_mla (eager)", torch, step_e, rows_e, peak_e)
+    for arm, rows, (ms, n) in (("graphs", rows_g, dev_g),
+                               ("eager", rows_e, dev_e)):
+        print(f"train_mla ({arm}): a fourth step's device_ms={ms:.3f} "
+              f"kernel launches {n}; the drain's later steps wall_ms "
+              f"{[round(1e3 * r['wall_s'], 1) for r in rows[1:]]}",
+              flush=True)
+    check(launches == {"K1": TRAIN_STEPS * k1_step,
+                       "K2": TRAIN_STEPS * k2_step},
+          f"train_mla: launches {launches}")
     return launches
 
 
@@ -2929,6 +3261,8 @@ def main(argv=None) -> int:
     cfg = get_config("qwen3-0.6b", tf=TFConfig(mode="pallas"))
     cfg_mla = get_config("deepseek-v3-671b", n_layers=MLA_LAYERS,
                          tf=TFConfig(mode="pallas"))
+    cfg_mla_train = get_config("deepseek-v3-671b", n_layers=MLA_TRAIN_LAYERS,
+                               tf=TFConfig(mode="pallas"))
     recs, launches = {}, {}
 
     def timed(name, fn, *a):
@@ -2940,10 +3274,12 @@ def main(argv=None) -> int:
 
     try:
         if "k1" in phases:
-            recs["K1 decode"], recs["K1 train"] = timed(
-                "k1", phase_k1, torch, cfg, args.seed)
+            (recs["K1 decode"], recs["K1 train"],
+             recs["K1 mla train"]) = timed("k1", phase_k1, torch, cfg,
+                                           args.seed, cfg_mla_train)
         if "k2" in phases:
-            recs["K2"] = timed("k2", phase_k2, torch, cfg, args.seed)
+            recs["K2"], recs["K2 mla"] = timed("k2", phase_k2, torch, cfg,
+                                               args.seed, cfg_mla_train)
         if "k3" in phases:
             recs["K3"] = timed("k3", phase_k3, torch, cfg, args.seed,
                                cfg_mla.vocab_size)
@@ -2974,6 +3310,9 @@ def main(argv=None) -> int:
         if "mla" in phases:
             launches["mla"], recs["K1 mla"] = timed(
                 "mla", phase_mla, torch, cfg_mla, args.seed)
+        if "train_mla" in phases:
+            launches["train_mla"] = timed("train_mla", phase_train_mla, torch,
+                                          cfg_mla_train, args.seed)
         if phases & ({name for name, _ in serving} | {"mla"}):
             timed("graphs", phase_graphs)
     except SmokeFailure as e:
@@ -2982,11 +3321,14 @@ def main(argv=None) -> int:
     # Each record's launches are counted on the main path's run that uses
     # the kernel: the dense drain (K1's decode record, K3), the paged drain
     # (K4, K6), the training run (K1's training record, K2), the MLA paged
-    # drain (K5, and K1's record at the deepseek-v3 shapes).
+    # drain (K5, and K1's record at the deepseek-v3 shapes), the MLA
+    # training drain (K1's and K2's records at its shapes).
     for rec, run, key in (("K1 decode", "serve", "K1"), ("K3", "serve", "K3"),
                           ("K1 train", "train", "K1"), ("K2", "train", "K2"),
                           ("K4", "paged", "K4"), ("K6", "paged", "K6"),
-                          ("K5", "mla", "K5"), ("K1 mla", "mla", "K1")):
+                          ("K5", "mla", "K5"), ("K1 mla", "mla", "K1"),
+                          ("K1 mla train", "train_mla", "K1"),
+                          ("K2 mla", "train_mla", "K2")):
         if rec in recs:
             recs[rec]["launches"] = launches.get(run, {}).get(key)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -45,17 +45,32 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
 
 
+# Elements per pass of the packing check: its temporaries are a few times
+# this many words, not a few times the leaf (a 0.93e9-element head would
+# need ~20 GB beside a full card's training state).
+PACK_SLAB = 1 << 26
+
+
 def _pack_leaf(t: torch.Tensor, fmt: float8.FloatFormat = PACK_FMT
                ) -> Optional[Dict[str, np.ndarray]]:
-    """The packed planes of ``t`` if unpacking them restores its bits."""
+    """The packed planes of ``t`` if unpacking them restores its bits. The
+    fields are elementwise after the per-tensor scale, so the leaf is taken
+    in slabs of ``PACK_SLAB`` elements."""
     s = float8.pow2_amax_scale(t, fmt)
-    fields = float8.decompose(t.to(torch.float32) * s, fmt)
-    back = (float8.compose(fields, fmt) / s).to(t.dtype)
-    if not torch.equal(_bits(back), _bits(t)):
-        return None
-    p = float8.pack(fields, fmt)
-    return {"@f8code": p.code.cpu().numpy(),
-            "@f8sign": p.signbit.cpu().numpy(), "@f8scale": s.cpu().numpy(),
+    flat = t.reshape(-1)
+    code, sign = [], []
+    for i in range(0, flat.numel(), PACK_SLAB):
+        part = flat[i:i + PACK_SLAB]
+        fields = float8.decompose(part.to(torch.float32) * s, fmt)
+        back = (float8.compose(fields, fmt) / s).to(t.dtype)
+        if not torch.equal(_bits(back), _bits(part)):
+            return None
+        p = float8.pack(fields, fmt)
+        code.append(p.code.cpu())
+        sign.append(p.signbit.cpu())
+    return {"@f8code": torch.cat(code).reshape(t.shape).numpy(),
+            "@f8sign": torch.cat(sign).reshape(t.shape).numpy(),
+            "@f8scale": s.cpu().numpy(),
             "@f8fmt": np.array([fmt.exp_bits, fmt.man_bits])}
 
 

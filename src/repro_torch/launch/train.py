@@ -8,7 +8,10 @@ arithmetic in ``--tf-mode`` (default ``pallas``: every forward projection
 through the K1 kernel, every dx through K2; on a CPU tensor each kernel's
 plain version runs instead). Fault tolerance comes from train/trainer.py:
 atomic keep-N checkpoints, auto-resume, the straggler watchdog and
-restartable data. The reference's ``--mesh``, ``--fake-devices``,
+restartable data. On the card each batch shape's step is captured into a
+CUDA graph at its first call and replayed after (``--graphs``, the
+default there); ``--no-graphs`` runs the same step eagerly, and the CPU
+takes no graphs. The reference's ``--mesh``, ``--fake-devices``,
 ``--trace-out`` and ``--metrics-out`` wait for the parallel and
 observability slices.
 """
@@ -41,6 +44,10 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--graphs", action=argparse.BooleanOptionalAction,
+                    default=None, help="capture each batch shape's step into "
+                    "a CUDA graph (the default on the card); --no-graphs "
+                    "steps eagerly")
     args = ap.parse_args(argv)
 
     import torch
@@ -68,17 +75,21 @@ def main(argv=None):
             name=args.optimizer, lr=args.lr, total_steps=args.steps,
             insitu=TFConfig() if args.insitu else None))
     device = torch.device(args.device)
+    if args.graphs and device.type != "cuda":
+        ap.error("--graphs needs a CUDA device; the CPU steps eagerly")
+    graphs = device.type == "cuda" if args.graphs is None else args.graphs
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     print(f"device {where}; arch={args.arch} quant={args.quant} "
           f"tf_mode={args.tf_mode} layers={cfg.n_layers} "
-          f"d_model={cfg.d_model} vocab={cfg.vocab_size}", flush=True)
+          f"d_model={cfg.d_model} vocab={cfg.vocab_size} "
+          f"graphs={'on' if graphs else 'off'}", flush=True)
 
     state = tsl.init_state(cfg, tcfg, args.seed, device)
     pipe = DataPipeline(cfg, batch=args.batch, seq=args.seq, seed=args.seed,
                         kind="markov" if cfg.vocab_size <= 65536 else "lm",
                         device=device)
-    step_fn = tsl.make_train_step(cfg, tcfg)
+    step_fn = tsl.make_train_step(cfg, tcfg, graphs=graphs)
 
     def on_metrics(step, m):
         print(f"step {step:5d} loss {m['loss']:.4f} gnorm "

@@ -99,10 +99,12 @@ class StepGraphs:
     in ``counts`` as the reference's ``counting_jit`` counts a trace, so
     ``counts`` is the number of distinct step programs a drain built.
 
-    A call names its entry, the step function and the host arrays it reads.
-    The arrays land in the entry's static input buffers (made at its first
-    call), and the function reads them and the engine's persistent tensors
-    (state, cache, parameters) and returns its output tensors.
+    A call names its entry, the step function and the inputs it reads:
+    host arrays, or tensors on either side (a training batch on the card,
+    a step's host scalars). The inputs land in the entry's static input
+    buffers (made at its first call), and the function reads them and the
+    caller's persistent tensors (state, cache, parameters) and returns its
+    output tensors.
 
     - ``capture=False`` (the CPU, or a CUDA engine with graphs off): every
       call runs the function eagerly on the static buffers.
@@ -115,9 +117,12 @@ class StepGraphs:
       memory pool, so temporaries are held once, not once per graph. Each
       replay adds to the kernel wrappers' ``launches`` what the capture
       recorded. A capture that fails raises; nothing falls back to eager.
+      ``generators`` (CUDA ``torch.Generator``s the steps draw from) are
+      registered with every graph, so each replay advances their Philox
+      offsets as an eager call would.
     """
 
-    def __init__(self, device, capture: bool):
+    def __init__(self, device, capture: bool, generators: tuple = ()):
         self.device = torch.device(device)
         if capture and self.device.type != "cuda":
             raise ValueError("CUDA graphs need a CUDA engine; a CPU engine "
@@ -125,6 +130,7 @@ class StepGraphs:
         if capture and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.capture = capture
+        self.generators = tuple(generators)
         self.counts: Dict[str, int] = {}
         self.warm_s: Dict[str, float] = {}     # each graph's eager warm-up
         self.capture_s: Dict[str, float] = {}  # and its capture
@@ -133,8 +139,7 @@ class StepGraphs:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.MemPool()
 
-    def call(self, name: str, fn: Callable[..., tuple],
-             *host: np.ndarray) -> tuple:
+    def call(self, name: str, fn: Callable[..., tuple], *host) -> tuple:
         entry = self._entries.get(name)
         if not self.capture:
             if entry is None:
@@ -155,13 +160,16 @@ class StepGraphs:
         return out
 
     def _buffers(self, host) -> List[Tensor]:
-        return [torch.tensor(np.asarray(a), device=self.device)
+        return [torch.empty(a.shape, dtype=a.dtype, device=self.device
+                            ).copy_(a) if isinstance(a, Tensor)
+                else torch.tensor(np.asarray(a), device=self.device)
                 for a in host]
 
     @staticmethod
     def _load(entry: _Entry, host) -> None:
         for buf, a in zip(entry.inputs, host):
-            buf.copy_(torch.from_numpy(np.asarray(a)))
+            buf.copy_(a if isinstance(a, Tensor)
+                      else torch.from_numpy(np.asarray(a)))
 
     def _create(self, name: str, fn, host) -> tuple:
         entry = _Entry(self._buffers(host))
@@ -176,6 +184,8 @@ class StepGraphs:
         torch.cuda.synchronize(self.device)
         self.warm_s[name] = time.monotonic() - t0
         graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
         t0 = time.monotonic()
         with launches_set_aside(entry.deltas), torch.cuda.graph(
                 graph, pool=self._pool.id, stream=self._stream):

@@ -9,6 +9,12 @@
 - deterministic data: batch = f(seed, step), so a restart replays the same
   stream.
 
+The step donates its state (train/step.py): the state it returns is its
+own buffers, which its next call overwrites, so a checkpoint copies every
+leaf to the host on this thread before the next step (as
+``CheckpointManager.save`` does), and a restored state is copied into the
+buffers by the step itself.
+
 The reference's observability hooks (tracer, metrics registry, health
 monitors) and its digital-twin ``hw_monitor`` wait for the port's
 observability and hw-twin slices.

@@ -493,6 +493,10 @@ def test_run_loop_resume_matches_uninterrupted_run(tmp_path):
             total_steps=total, ckpt_every=2, ckpt_dir=ckpt))
 
     full, rep = run(4, None)
+    # The returned state aliases the step's buffers, which the next runs
+    # of the same step overwrite: keep a copy.
+    full = full._replace(params=tree_lib.tree_map(torch.clone, full.params),
+                         opt=tree_lib.tree_map(torch.clone, full.opt))
     _, first = run(2, str(tmp_path))
     resumed, rep2 = run(4, str(tmp_path))
     assert first.resumed_from is None and rep2.resumed_from == 2
