@@ -123,7 +123,8 @@ logit tap reads each captured step's top logits after every replay.
              layers: a 16-page pool, 8 new tokens each, kernels against
              plain versions (evictions, a conserved pool, all-trash tables,
              >= 6 of 8 identical streams and identical first tokens).
-10. chunked — the same model, Engine(chunk_tokens=64), dense (slots=4,
+10. chunked — the same model through its first 14 of 28 layers,
+             Engine(chunk_tokens=64), dense (slots=4,
              max_len=512) and paged (page_size=16, the paged phase's 48-token
              shared prefix before every prompt): 8 greedy requests, 4 of
              150-400 tokens and 4 of 5-60, 8 new tokens each, against the
@@ -134,9 +135,10 @@ logit tap reads each captured step's top logits after every replay.
              a near-tie flip (the first token included); paged: radix hits,
              a conserved pool, all-trash tables and K6 launched twice per
              layer on every chunk wave.
-11. spec   — the same model, a paged engine with SpecConfig(k=4) against
-             the same engine without, on 8 greedy motif-tiled prompts
-             (tests/test_spec.py's) of 16 new tokens: once with the ngram
+11. spec   — the same model through its first 14 of 28 layers, a paged
+             engine with SpecConfig(k=4) against the same engine without,
+             on 8 greedy motif-tiled prompts (tests/test_spec.py's) of 16
+             new tokens: once with the ngram
              draft, once with a replay of the spec-off stream as the draft
              (random weights never repeat themselves, so the ngram draft has
              nothing to be accepted). Gates for both: K4 launched at 20 rows
@@ -221,7 +223,35 @@ logit tap reads each captured step's top logits after every replay.
              runs on the card), kernels against plain versions: identical
              streams. One engine's graphs are alive at a time. Prints the
              peak device memory.
-15. train_mla — deepseek-v3 cut to its first dense layer at every
+15. moe    — with the MLA model freed: deepseek-v3 cut to 4 layers, its 3
+             dense layers and its first MoE layer (256 routed experts of
+             width 2048, top-8, one shared expert, capacity factor 1.25),
+             every published width, bf16 parameters (15.11e9: 30.2 GB),
+             random weights from --seed, TimeFloats ``mode="pallas"``. K1
+             over a group of experts (``timefloats_matmul_experts``, one
+             launch) at the MoE layer's wg, wu and wd shapes, at the decode
+             capacity (8), a 4 x 64-token prefill's (16) and a drop-free
+             verify's (20): bitwise
+             against its plain version (the 2-D plain version expert by
+             expert), on two calls and against the 2-D launch of each
+             expert; kernel, plain and library (dequantize + batched f32
+             matmul) times and the bound of one decode step's launches.
+             One MoE block of a decode step (MLA mixer, router, dispatch,
+             experts, shared expert, combine) and its MoE layer at a 20-row
+             drop-free verify, kernels against plain versions within
+             K5_TOL of max(1, |plain|). A paged drain of 4
+             greedy requests (5-60 tokens, 8 new each; K1 dense and over
+             experts, K5 every decode step, K6 every wave, K3) against its
+             eager twin (identical streams and launches) and a warm drain
+             that captures nothing; the same requests with SpecConfig(k=4)
+             and chunk_tokens=32, its drafts a replay of the paged drain's
+             streams (the MoE layer routes drop-free at the 20-row verify,
+             K5 at 20 rows; drafts accepted), against its eager twin, every
+             divergence from the paged drain a near-tie flip; no
+             assignment dropped at any decode or verify dispatch (read on
+             the eager twins); one eager decode step's device ms
+             (``torch.profiler``) and its launches. Prints peak memory.
+16. train_mla — deepseek-v3 cut to its first dense layer at every
              published width (``get_config("deepseek-v3-671b",
              n_layers=1)``: MLA with 128 heads, FFN 18432, vocab 129280,
              untied head; 2.437e9 parameters), TimeFloats ``mode="pallas"``,
@@ -236,7 +266,7 @@ logit tap reads each captured step's top logits after every replay.
              final checkpoint restoring bitwise. Prints each arm's wall ms
              per step, a fourth step's device ms (``torch.profiler``) and
              peak memory.
-16. graphs — in a process of its own, a step whose capture fails (a host
+17. graphs — in a process of its own, a step whose capture fails (a host
              sync) raises, is not counted and never runs eagerly in place of
              the graph.
 
@@ -305,7 +335,7 @@ MLA_TRAIN_LAYERS = 1
 # rows a call carries (PERF.md §7).
 MLA_SPEC_CHUNKED_SAME = 7
 PHASES = ("k1", "k2", "k3", "k6", "k4", "k5", "serve", "paged", "chunked",
-          "spec", "train", "mla", "train_mla")
+          "spec", "train", "mla", "moe", "train_mla")
 
 
 class SmokeFailure(Exception):
@@ -1646,6 +1676,11 @@ EVICT_NEW = 8         # its new tokens per request (trimmed from 16)
 # speculative phases came, to keep the smoke near its length; the pool's
 # eviction does not depend on depth).
 EVICT_LAYERS = 7
+# The chunked and speculative phases' depth: qwen3's first 14 of 28 layers.
+# With the moe phase and both at full depth the smoke took 1192.6 s of its
+# 1200 s limit on one H100 (chunked 194.0 s, spec 156.2 s); chunking and
+# speculation do not depend on depth.
+CHUNKED_LAYERS = SPEC_LAYERS = 14
 
 
 def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
@@ -1904,8 +1939,11 @@ def _report(what: str, eng, streams: dict, wall: float, calls: int,
 
 
 def phase_chunked(torch, cfg, seed: int, params) -> dict:
-    """Chunked prefill at full width: Engine(chunk_tokens=CHUNK), dense
-    and paged, against the same engine unchunked (kernels in both)."""
+    """Chunked prefill at full width through the model's first
+    CHUNKED_LAYERS layers: Engine(chunk_tokens=CHUNK), dense and paged,
+    against the same engine unchunked (kernels in both)."""
+    cfg = dataclasses.replace(cfg, n_layers=CHUNKED_LAYERS)
+    params = dict(params, layers=params["layers"][:CHUNKED_LAYERS])
     from repro_torch.kernels import paged as kp
     from repro_torch.kernels import paged_attn as kpa
     from repro_torch.kernels import sampling as ks
@@ -2053,9 +2091,12 @@ SELF_DRAFT_NEW = 1 + 3 * (SPEC_K + 1)
 
 
 def phase_spec(torch, cfg, seed: int, params) -> dict:
-    """Speculative decoding at full width: a paged engine with SPEC_K-token
-    drafts, ngram and then a replay of the spec-off stream, each against
-    the same engine without speculation; then a dense self-draft drain."""
+    """Speculative decoding at full width through the model's first
+    SPEC_LAYERS layers: a paged engine with SPEC_K-token drafts, ngram and
+    then a replay of the spec-off stream, each against the same engine
+    without speculation; then a dense self-draft drain."""
+    cfg = dataclasses.replace(cfg, n_layers=SPEC_LAYERS)
+    params = dict(params, layers=params["layers"][:SPEC_LAYERS])
     from repro_torch.kernels import paged as kp
     from repro_torch.kernels import paged_attn as kpa
     from repro_torch.kernels import sampling as ks
@@ -3182,6 +3223,385 @@ def phase_mla(torch, cfg, seed: int) -> dict:
     return launches, k1_rec
 
 
+# The MoE vehicle: deepseek-v3 cut in depth to its three dense layers and
+# its first MoE layer (256 routed experts, top-8, one shared expert), every
+# published width, parameters in bf16 as the reference sets them at this
+# scale (15.11e9 parameters: 30.2 GB).
+MOE_LAYERS = 4
+MOE_NEW = 8                    # new tokens per request of the MoE drains
+
+
+def _moe_requests(cfg, seed: int):
+    """4 greedy requests of 5-60 tokens, ``MOE_NEW`` new tokens each."""
+    import numpy as np
+
+    from repro_torch.serve.request import Request
+
+    rng = np.random.default_rng(seed + 11)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, SLOTS)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(n))
+                    .astype(np.int32), max_new_tokens=MOE_NEW)
+            for i, n in enumerate(lens)]
+
+
+def _moe_drain(torch, params, cfg, seed: int, eng=None, drafts=None,
+               **engine_kw):
+    """Drain the MoE requests through a new paged engine, or ``eng``;
+    a speculative engine's drafts replay ``drafts`` (uid -> stream)."""
+    from repro_torch.serve.engine import Engine
+
+    if eng is None:
+        eng = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed,
+                     paged=True, page_size=PAGE, min_bucket=MIN_BUCKET,
+                     **engine_kw)
+    if drafts is not None:
+        replay_drafts(eng, drafts)
+    for r in _moe_requests(cfg, seed):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    return eng, {f.uid: [int(t) for t in f.tokens] for f in done}, \
+        time.monotonic() - t0
+
+
+class MoeTap:
+    """Records, while entered, every MoE dispatch that routes all of its
+    tokens (a decode step's, token_mask None; or a verify's, drop-free):
+    (tokens, drop_free, dropped_frac). It reads the device, so it runs on
+    eager drains only (a capture while it is entered fails the smoke)."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.mod, self.calls = moe, []
+        real = self.real = moe._moe_tokens
+
+        def tapped(params, xf, cfg, token_mask=None, drop_free=False):
+            y, aux = real(params, xf, cfg, token_mask=token_mask,
+                          drop_free=drop_free)
+            if token_mask is None:
+                check(not torch.cuda.is_current_stream_capturing(),
+                      "MoeTap on a graph drain")
+                self.calls.append((xf.shape[0], drop_free,
+                                   float(aux["dropped_frac"])))
+            return y, aux
+
+        moe._moe_tokens = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._moe_tokens = self.real
+
+    def hold(self, what: str, k: int, verify: bool) -> None:
+        """No assignment dropped at decode or verify, and some seen at
+        the verify (``verify``: a speculative drain, every step a verify)
+        or at decode: kept assignments equal tokens x top_k."""
+        dec = [c for c in self.calls if not c[1]]
+        ver = [c for c in self.calls if c[1]]
+        kept = sum(t * k - round(df * t * k) for t, _, df in self.calls)
+        print(f"{what}: MoE dispatches at decode {len(dec)} (tokens "
+              f"{sorted({c[0] for c in dec})}), at verify {len(ver)} "
+              f"(tokens {sorted({c[0] for c in ver})}); dropped_frac max "
+              f"{max((c[2] for c in self.calls), default=0.0)}; kept "
+              f"assignments {kept} of {sum(t * k for t, _, _ in self.calls)}",
+              flush=True)
+        check(bool(ver) if verify else bool(dec), f"{what}: no MoE "
+              f"dispatch seen at {'verify' if verify else 'decode'}")
+        check(all(df == 0.0 for _, _, df in self.calls),
+              f"{what}: an assignment dropped at decode or verify")
+
+
+def moe_k1(torch, cfg, params, gen) -> dict:
+    """K1 over a group of experts at the MoE layer's shapes (wg, wu, wd at
+    the decode capacity, a 4 x 64-token prefill's and a chain verify's),
+    bitwise against its plain version and, expert by expert, against the
+    2-D launch; timed at the decode capacity. Returns the kernels' record
+    of one decode step's expert launches."""
+    from repro_torch.core import timefloats as tf
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import timefloats_matmul as km
+    from repro_torch.models import moe
+
+    mo = cfg.moe
+    lp = params["layers"][mo.first_k_dense]["ffn"]
+    # A verify routes drop-free: each expert's capacity is its token count.
+    caps = {"decode": moe.capacity(SLOTS, cfg),
+            "prefill": moe.capacity(SLOTS * MIN_BUCKET, cfg),
+            "verify": VERIFY_ROWS}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+           "ops": 0.0}
+    launches = 0
+    for name in ("wg", "wu", "wd"):
+        w = lp[name]
+        e_dim, k, n = w.shape
+        groups = tf.expert_groups(e_dim, k, n)
+        g = groups[0]
+        pw = tf.prepare_weight_experts(w[g], cfg.tf)
+        for what, m in caps.items():
+            x = (torch.randn(g.stop - g.start, m, k, generator=gen,
+                             device="cuda") * 0.5).bfloat16()
+            px = tf.prepare_input_experts(x, cfg.tf)
+            a = ops.padded_expert_operands(px.q, pw.q)
+            qx, sx, qw, sw = a
+            got = km.timefloats_matmul_experts(*a, cfg=cfg.tf)
+            again = km.timefloats_matmul_experts(*a, cfg=cfg.tf)
+            want = km.timefloats_matmul_experts_plain(*a, cfg.tf)
+            flat = torch.stack([km.timefloats_matmul_quantized(
+                qx[e], sx[e], qw[e], sw[e], cfg=cfg.tf)
+                for e in range(qx.shape[0])])
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K1 experts {name} {what} M={m}: "
+                  "kernel != plain")
+            check(torch.equal(got, again) and torch.equal(got, flat),
+                  f"K1 experts {name} {what}: two calls or the 2-D launches "
+                  "differ")
+            c, mp = qx.shape[1], qx.shape[2]
+            plan = km.k1_plan(mp, c, n, _build.sm_count("cuda"),
+                              experts=qx.shape[0])
+            if what != "decode":
+                print(f"moe: K1 experts {name} {what} M={m} (group of "
+                      f"{qx.shape[0]}) bitwise against plain and the 2-D "
+                      f"launches, plan={tuple(plan)}", flush=True)
+                continue
+            ms = time_ms(torch, lambda: km.timefloats_matmul_experts(
+                *a, cfg=cfg.tf), reps=10)
+            plain = time_ms(torch, lambda: km.timefloats_matmul_experts_plain(
+                *a, cfg.tf), reps=2, warmup=1)
+            lib = time_ms(torch, lambda: tf.dequantize_input(px.q, k)
+                          @ tf.dequantize_weight(pw.q, k), reps=5, warmup=1)
+            nb, no = k1_traffic(c, m, n)
+            nb, no = nb * qx.shape[0], no * qx.shape[0]
+            b_ms, b_by = bound(nb, no)
+            print(f"moe: K1 experts {name} {what} M={m} K={k} N={n} group of "
+                  f"{qx.shape[0]} bitwise against plain and the 2-D launches,"
+                  f" plan={tuple(plan)} ms={ms:.4f} plain_ms={plain:.4f} "
+                  f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"share_of_bound={b_ms / ms:.4f} launches_per_step="
+                  f"{len(groups)}", flush=True)
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("library_ms", lib), ("bytes", nb), ("ops", no)):
+                tot[key] += len(groups) * v
+            launches += len(groups)
+        del pw, x, px, a
+    b_ms, b_by = bound(tot["bytes"], tot["ops"])
+    print(f"moe: K1 experts per decode step ({launches} launches over "
+          f"{mo.num_experts} experts): ms={tot['ms']:.4f} plain_ms="
+          f"{tot['plain_ms']:.4f} library_ms={tot['library_ms']:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound="
+          f"{b_ms / tot['ms']:.4f}", flush=True)
+    return {"name": f"K1 timefloats_matmul over experts (one {cfg.name} "
+                    f"MoE layer's decode step, {launches} launches)",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/timefloats_matmul.cu",
+            "replaces": "src/repro/kernels/timefloats_matmul.py:47",
+            "max_abs_err": 0.0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": tot["library_ms"]}
+
+
+def moe_block_hold(torch, cfg, params, gen) -> None:
+    """One MoE block (MLA mixer, router, dispatch, experts, shared expert,
+    combine) of one decode step, and the block's MoE layer at a chain
+    verify's VERIFY_ROWS tokens (drop-free), kernels against plain
+    versions: each within K5_TOL of max(1, |plain|) (bitwise reported),
+    with no assignment dropped."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model, moe
+
+    lp = params["layers"][cfg.moe.first_k_dense]
+    x = torch.randn(SLOTS, 1, cfg.d_model, generator=gen,
+                    device="cuda").bfloat16()
+    xv = torch.randn(SLOTS, SPEC_K + 1, cfg.d_model, generator=gen,
+                     device="cuda").bfloat16()
+    pos = torch.full((SLOTS, 1), 7, dtype=torch.int32, device="cuda")
+    lengths = torch.full((SLOTS,), 8, dtype=torch.int32, device="cuda")
+
+    def decode_block():
+        cache = model._layer_cache(cfg, SLOTS, 64, "cuda")
+        g = torch.Generator(device="cuda").manual_seed(3)
+        for buf in cache:
+            buf.copy_(torch.randn(buf.shape, generator=g, device="cuda"))
+        with torch.no_grad():
+            y, _, aux = model.block_apply("moe", lp, x, cfg, positions=pos,
+                                          cache=cache, lengths=lengths)
+        return y, aux
+
+    def verify_layer():
+        with torch.no_grad():
+            return moe.moe_apply(lp["ffn"], xv, cfg, drop_free=True)
+
+    for what, run in ((f"one MoE block of a decode step ({SLOTS} tokens)",
+                       decode_block),
+                      (f"the MoE layer of a verify ({VERIFY_ROWS} tokens, "
+                       "drop-free)", verify_layer)):
+        t0 = time.monotonic()
+        y, aux = run()
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        with dispatch.override(kernels=False):
+            yp, auxp = run()
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        diff = float((y.float() - yp.float()).abs().max().item())
+        scale = max(1.0, float(yp.float().abs().max().item()))
+        print(f"moe: {what}: kernels {t1 - t0:.2f}s, plain versions "
+              f"{t2 - t1:.2f}s; bitwise {torch.equal(y, yp)}, max |diff| "
+              f"{diff:.3g} of scale {scale:.3g}; dropped_frac "
+              f"{float(aux['dropped_frac'])} / {float(auxp['dropped_frac'])}",
+              flush=True)
+        check(diff <= K5_TOL * scale, f"moe: {what}: the kernels and plain "
+              "versions differ")
+        check(float(aux["dropped_frac"]) == 0.0
+              and float(auxp["dropped_frac"]) == 0.0,
+              f"moe: {what}: an assignment dropped")
+
+
+def phase_moe(torch, cfg, seed: int) -> tuple:
+    import numpy as np
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels import paged as kp
+    from repro_torch.kernels import paged_attn as kpa
+    from repro_torch.kernels import sampling as ks
+    from repro_torch.kernels import timefloats_matmul as km
+    from repro_torch.models import model
+    from repro_torch.serve.spec import SpecConfig
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in tree_lib.leaves(params))
+    mo = cfg.moe
+    print(f"moe: init {cfg.name} ({cfg.n_layers} layers {cfg.layer_kinds()},"
+          f" {mo.num_experts} experts top-{mo.top_k} of width {mo.d_expert}, "
+          f"{mo.num_shared} shared; {n_par / 1e9:.3f}e9 {cfg.param_dtype} "
+          f"parameters) in {time.monotonic() - t_phase:.1f}s; memory_GB="
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} peak_mem_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    rec = moe_k1(torch, cfg, params, gen)
+    moe_block_hold(torch, cfg, params, gen)
+    release(torch)
+
+    counters = {"K1": km.timefloats_matmul_quantized,
+                "K1e": km.timefloats_matmul_experts, "K3": ks.sample,
+                "K4": kpa.paged_decode_attention, "K5": kpa.paged_decode_mla,
+                "K6": kp.gather_pages}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def launched():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    layers = cfg.n_layers
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    eng, streams, wall = _moe_drain(torch, params, cfg, seed)
+    launches = launched()
+    graph_note("moe paged", eng, torch)
+    print(f"moe paged: drained {len(streams)} requests in {wall:.2f}s, "
+          f"steps={eng.steps} launches={launches}", flush=True)
+    check(sorted(streams) == list(range(SLOTS)) and all(
+        len(t) == MOE_NEW for t in streams.values()),
+        f"moe paged: {SLOTS} requests of {MOE_NEW} tokens")
+    check(launches["K5"] == layers * eng.steps and launches["K6"] > 0
+          and launches["K1"] > 0 and launches["K1e"] > 0
+          and launches["K3"] > 0 and launches["K4"] == 0,
+          f"moe paged: launches {launches} in {eng.steps} steps")
+    g_eng = (snap(eng), streams, launches)
+    hold_warm("moe paged", eng, lambda: _moe_drain(torch, params, cfg, seed,
+                                                   eng=eng))
+    del eng
+    release(torch)
+    reset()
+    with LogitTap() as tap_k, MoeTap() as mtap:
+        e_eng, e_streams, e_wall = _moe_drain(torch, params, cfg, seed,
+                                              graphs=False)
+    print(f"moe paged: eager drain in {e_wall:.2f}s: wall_ms_per_step="
+          f"{1e3 * e_wall / e_eng.steps:.1f}", flush=True)
+    hold_graphs("moe paged", g_eng, (snap(e_eng), e_streams, launched()))
+    mtap.hold("moe paged", mo.top_k, verify=False)
+    del e_eng
+    release(torch)
+    print(f"moe: paged drains in {time.monotonic() - t0:.1f}s", flush=True)
+
+    # The speculative drains replay the paged drain's streams as drafts:
+    # the ngram draft is never accepted on random weights (0 of 112 in
+    # this phase's first runs), and then only a verify's first row would
+    # reach a stream.
+    sc_kw = dict(spec=SpecConfig(k=SPEC_K), chunk_tokens=MLA_CHUNK,
+                 drafts=streams)
+    t0 = time.monotonic()
+    reset()
+    sc_eng, sc, sc_wall = _moe_drain(torch, params, cfg, seed, **sc_kw)
+    sc_launches = launched()
+    sc_st = sc_eng.stats()
+    graph_note("moe spec+chunked", sc_eng, torch)
+    print(f"moe spec+chunked: drained in {sc_wall:.2f}s: steps="
+          f"{sc_eng.steps} chunk_waves={sc_eng.chunk_waves} accepted "
+          f"{int(sc_st['spec_accepted'])} of {int(sc_st['spec_proposed'])} "
+          f"drafts; launches={sc_launches}; streams digest {digest(sc)}",
+          flush=True)
+    check(sc_eng.chunk_waves > 0 and sc_launches["K5"] == layers
+          * sc_eng.steps, f"moe spec+chunked: launches {sc_launches}")
+    check(sc_eng.pool.conserved(), "moe spec+chunked: pool not conserved")
+    check(sc_st["spec_accepted"] > 0, "moe spec+chunked: no draft accepted")
+    g_sc = (snap(sc_eng), sc, sc_launches)
+    del sc_eng
+    release(torch)
+    reset()
+    with LogitTap() as tap_sc, MoeTap() as stap, RowCount(
+            kpa, "_mla_kernel") as k5_rows:
+        e_sc_eng, e_sc, _ = _moe_drain(torch, params, cfg, seed,
+                                       graphs=False, **sc_kw)
+    hold_graphs("moe spec+chunked", g_sc, (snap(e_sc_eng), e_sc, launched()))
+    stap.hold("moe spec+chunked", mo.top_k, verify=True)
+    check(k5_rows.rows.get(VERIFY_ROWS, 0) > 0, "moe spec+chunked: K5 "
+          f"launches by rows {k5_rows.rows}")
+    rep = divergence_report("spec+chunked vs the paged drain",
+                            ("spec+chunked", e_sc, tap_sc.table()),
+                            ("paged", e_streams, tap_k.table()),
+                            phase="moe", first_ok=True)
+    check(rep["near_ties"], "moe spec+chunked: a divergence from the paged "
+          "drain that is not a near-tie flip")
+    del e_sc_eng, g_sc
+    release(torch)
+    print(f"moe: spec+chunked drains in {time.monotonic() - t0:.1f}s",
+          flush=True)
+
+    # One decode step's device time by operator, SLOTS rows of 40 tokens.
+    cache = model.init_paged_cache(cfg, SLOTS, MAX_LEN, page_size=PAGE,
+                                   num_pages=SLOTS * 4 + 1, device="cuda")
+    rows = np.zeros((SLOTS, MAX_LEN // PAGE), np.int32)
+    rows[:, :4] = np.arange(1, SLOTS * 4 + 1).reshape(SLOTS, 4)
+    cache = model.set_page_rows(cache, np.arange(SLOTS), rows)
+    cache = cache._replace(lengths=torch.full((SLOTS,), 40, dtype=torch.int32,
+                                              device="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (SLOTS, 1), generator=gen,
+                           device="cuda")
+    reset()
+    with torch.no_grad():
+        model.decode_step(params, cache, tokens, cfg, kv_cap=64)
+        step_launches = launched()
+        ms, n_k = device_ms(torch, lambda: model.decode_step(
+            params, cache, tokens, cfg, kv_cap=64))
+    print(f"moe: one eager decode step ({SLOTS} rows of 40 tokens): "
+          f"device_ms={ms:.3f} kernel launches={n_k}; wrapper launches "
+          f"{step_launches} (K1 over experts: {step_launches['K1e']}); by "
+          "operator: launch/profile_decode.py", flush=True)
+    print(f"moe: phase peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" in {time.monotonic() - t_phase:.1f}s", flush=True)
+    return launches, rec
+
+
 FAILED_CAPTURE = """
 import sys
 import numpy as np
@@ -3263,6 +3683,8 @@ def main(argv=None) -> int:
                          tf=TFConfig(mode="pallas"))
     cfg_mla_train = get_config("deepseek-v3-671b", n_layers=MLA_TRAIN_LAYERS,
                                tf=TFConfig(mode="pallas"))
+    cfg_moe = get_config("deepseek-v3-671b", n_layers=MOE_LAYERS,
+                         param_dtype="bfloat16", tf=TFConfig(mode="pallas"))
     recs, launches = {}, {}
 
     def timed(name, fn, *a):
@@ -3310,10 +3732,13 @@ def main(argv=None) -> int:
         if "mla" in phases:
             launches["mla"], recs["K1 mla"] = timed(
                 "mla", phase_mla, torch, cfg_mla, args.seed)
+        if "moe" in phases:
+            launches["moe"], recs["K1 moe"] = timed(
+                "moe", phase_moe, torch, cfg_moe, args.seed)
         if "train_mla" in phases:
             launches["train_mla"] = timed("train_mla", phase_train_mla, torch,
                                           cfg_mla_train, args.seed)
-        if phases & ({name for name, _ in serving} | {"mla"}):
+        if phases & ({name for name, _ in serving} | {"mla", "moe"}):
             timed("graphs", phase_graphs)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
@@ -3321,12 +3746,14 @@ def main(argv=None) -> int:
     # Each record's launches are counted on the main path's run that uses
     # the kernel: the dense drain (K1's decode record, K3), the paged drain
     # (K4, K6), the training run (K1's training record, K2), the MLA paged
-    # drain (K5, and K1's record at the deepseek-v3 shapes), the MLA
-    # training drain (K1's and K2's records at its shapes).
+    # drain (K5, and K1's record at the deepseek-v3 shapes), the MoE paged
+    # drain (K1's launches over experts), the MLA training drain (K1's and
+    # K2's records at its shapes).
     for rec, run, key in (("K1 decode", "serve", "K1"), ("K3", "serve", "K3"),
                           ("K1 train", "train", "K1"), ("K2", "train", "K2"),
                           ("K4", "paged", "K4"), ("K6", "paged", "K6"),
                           ("K5", "mla", "K5"), ("K1 mla", "mla", "K1"),
+                          ("K1 moe", "moe", "K1e"),
                           ("K1 mla train", "train_mla", "K1"),
                           ("K2 mla", "train_mla", "K2")):
         if rec in recs:

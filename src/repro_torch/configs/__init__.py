@@ -10,6 +10,7 @@ from repro_torch.configs.base import ModelConfig, reduced_for_smoke  # noqa: F40
 
 _MODULES: Dict[str, str] = {
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "qwen3-0.6b": "repro_torch.configs.qwen3_0p6b",
 }
 

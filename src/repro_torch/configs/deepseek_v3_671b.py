@@ -3,8 +3,9 @@
 repro.configs.deepseek_v3_671b).
 
 MLA dims: q_lora 1536, kv_lora 512, nope 128, rope 64, v 128. The first 3
-layers are dense, of width 18432; the port runs them alone
-(``get_config("deepseek-v3-671b", n_layers=3)``) until MoE is ported.
+layers are dense, of width 18432; the rest are MoE layers (models/moe.py).
+The card runs it cut in depth: ``n_layers=3`` (the dense layers) or
+``n_layers=4, param_dtype="bfloat16"`` (with the first MoE layer).
 """
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 

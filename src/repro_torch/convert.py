@@ -3,10 +3,11 @@
 ``from_jax_params(np_tree, cfg, device)`` takes the tree that
 ``repro.models.model.init`` returns, already turned into numpy arrays by
 the caller (this package never imports JAX), and returns the port's
-parameters: the dense family, or a ``moe``-family tree whose layers are all
-dense (deepseek-v3's first layers, MLA leaves included). The reference
-stacks each layer group's leaves along a leading ``(layers,)`` dim; here
-they are sliced into one dict per layer. ``from_jax_cache`` and
+parameters: the dense family, or the ``moe`` family (MLA or GQA mixers;
+its dense layers, and its MoE layers with the router, the (E, d, f) /
+(E, f, d) expert stacks and the shared expert's ``shared_w*``). The
+reference stacks each layer group's leaves along a leading ``(layers,)``
+dim; here they are sliced into one dict per layer, in layer order. ``from_jax_cache`` and
 ``from_jax_paged_cache`` do the same for a serving cache, GQA or MLA. bf16
 leaves cross as a uint16 bit view (or numpy's ``bfloat16`` extension
 dtype, which is viewed the same way).
@@ -36,13 +37,11 @@ def _map(tree: Any, fn) -> Any:
 
 def from_jax_params(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """Reference parameter tree (numpy leaves) -> port parameters."""
-    if cfg.family not in ("dense", "moe") or "moe" in cfg.layer_kinds():
-        raise NotImplementedError(f"{cfg.name}: only dense layers are "
-                                  "ported")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is "
+                                  "not ported")
     layers = []
     for group in np_tree["groups"]:
-        if group.get("kind_", "dense") != "dense":
-            raise NotImplementedError("only dense layer groups are ported")
         gp = group.get("params", group)
         count = int(np.asarray(gp["norm1"]["scale"]).shape[0])
         for i in range(count):
@@ -51,6 +50,10 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     if len(layers) != cfg.n_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.n_layers}")
+    kinds = ["moe" if "router" in lp["ffn"] else "dense" for lp in layers]
+    if tuple(kinds) != cfg.layer_kinds():
+        raise ValueError(f"the tree's layer kinds {kinds} are not the "
+                         f"config's {cfg.layer_kinds()}")
     out = {"embed": _tensor(np_tree["embed"], device), "layers": layers,
            "final_norm": _map(np_tree["final_norm"],
                               lambda a: _tensor(a, device))}

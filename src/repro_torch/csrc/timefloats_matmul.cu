@@ -42,6 +42,13 @@
 // (one arrival a warp) as soon as they have read it, so the loads of later
 // chunks overlap the products and the epilogue.
 //
+// Experts. An MoE layer multiplies E experts' planes at once (the
+// reference's jax.vmap over `timefloats_matmul_quantized`): qx (E,C,M,64),
+// sx (E,C,M), qw (E,C,64,N), sw (E,C,N), out (E,M,N). The tensor maps carry
+// the expert as their outermost dim and the grid's x index folds it above
+// the row tiles (x = e * row tiles + row tile), so each block computes one
+// expert's tile exactly as the 2-D launch does; the 2-D launch is E = 1.
+//
 // Two regimes (the wrapper's `k1_plan` picks the tile and the split):
 // - Decode and prefill (M <= 256): bytes-bound at decode, the weight's
 //   planes streamed once, and too few output tiles to fill the card. From
@@ -104,16 +111,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
-         "r"(y), "r"(smem_u32(bar))
-      : "memory");
-}
-
 __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
                                        int x, int y, int z, uint64_t* bar) {
   asm volatile(
@@ -121,6 +118,17 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
          "r"(y), "r"(z), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
+                                       int x, int y, int z, int w,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
+         "r"(y), "r"(z), "r"(w), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -311,8 +319,12 @@ tf_mma_kernel(const __grid_constant__ CUtensorMap qx_map,
   float* terms = reinterpret_cast<float*>(empty + STAGES);
 
   // Row tiles vary fastest, so the blocks running together share column
-  // tiles and a weight tile is fetched from device memory about once.
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  // tiles and a weight tile is fetched from device memory about once. The
+  // expert lies above the row tiles.
+  const int m_tiles = (M + BM - 1) / BM;
+  const int ex = blockIdx.x / m_tiles;
+  const int m0 = (blockIdx.x % m_tiles) * BM, n0 = blockIdx.y * BN;
+  out += static_cast<size_t>(ex) * M * N;
   const int S = gridDim.z, split = blockIdx.z;
   const int c_lo = static_cast<int>(static_cast<long long>(split) * C / S);
   const int c_hi = static_cast<int>(static_cast<long long>(split + 1) * C / S);
@@ -338,12 +350,12 @@ tf_mma_kernel(const __grid_constant__ CUtensorMap qx_map,
         const int j = c - c_lo, st = j % STAGES;
         mbar_wait(&empty[st], ((j / STAGES) & 1) ^ 1);
         mbar_expect_tx(&full[st], K::kTx);
-        tma_3d(qw_s + st * K::kQw, &qw_map, n0, 0, c, &full[st]);
-        tma_3d(qx_s + st * K::kQx, &qx_map, 0, m0, c, &full[st]);
-        tma_2d(reinterpret_cast<uint8_t*>(sx_s) + st * K::kSx, &sx_map, m0,
-               c, &full[st]);
-        tma_2d(reinterpret_cast<uint8_t*>(sw_s) + st * K::kSw, &sw_map, n0,
-               c, &full[st]);
+        tma_4d(qw_s + st * K::kQw, &qw_map, n0, 0, c, ex, &full[st]);
+        tma_4d(qx_s + st * K::kQx, &qx_map, 0, m0, c, ex, &full[st]);
+        tma_3d(reinterpret_cast<uint8_t*>(sx_s) + st * K::kSx, &sx_map, m0,
+               c, ex, &full[st]);
+        tma_3d(reinterpret_cast<uint8_t*>(sw_s) + st * K::kSw, &sw_map, n0,
+               c, ex, &full[st]);
       }
     }
     if (S > 1) {  // the consumers' two cluster barriers below
@@ -479,7 +491,7 @@ bool encode(EncodeTiled enc, CUtensorMap* map, CUtensorMapDataType type,
             int rank, const void* ptr, const cuuint64_t* dims,
             const cuuint64_t* strides, const cuuint32_t* box,
             CUtensorMapSwizzle swizzle) {
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -488,7 +500,7 @@ bool encode(EncodeTiled enc, CUtensorMap* map, CUtensorMapDataType type,
 
 template <int NT, int WM, int WN, int STAGES, bool kAdc>
 int launch(const void* qx, const void* sx, const void* qw, const void* sw,
-           void* out, int C, int M, int N, int splits, float fs,
+           void* out, int E, int C, int M, int N, int splits, float fs,
            float levels, float step, cudaStream_t st) {
   using K = Cfg<NT, WM, WN, STAGES>;
   constexpr int BM = K::kBM, BN = K::kBN;
@@ -498,35 +510,37 @@ int launch(const void* qx, const void* sx, const void* qw, const void* sw,
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap qx_map, qw_map, sx_map, sw_map;
+  const cuuint64_t e64 = static_cast<cuuint64_t>(E);
   const cuuint64_t c64 = static_cast<cuuint64_t>(C);
   const cuuint64_t m64 = static_cast<cuuint64_t>(M);
   const cuuint64_t n64 = static_cast<cuuint64_t>(N);
-  {  // qx as (64, M, C) bytes; one box is BM rows of one chunk
-    const cuuint64_t dims[3] = {kB, m64, c64};
-    const cuuint64_t strides[2] = {kB, kB * m64};
-    const cuuint32_t box[3] = {kB, BM, 1};
-    if (!encode(enc, &qx_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, qx, dims,
+  {  // qx as (64, M, C, E) bytes; one box is BM rows of one chunk
+    const cuuint64_t dims[4] = {kB, m64, c64, e64};
+    const cuuint64_t strides[3] = {kB, kB * m64, kB * m64 * c64};
+    const cuuint32_t box[4] = {kB, BM, 1, 1};
+    if (!encode(enc, &qx_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, qx, dims,
                 strides, box, CU_TENSOR_MAP_SWIZZLE_64B))
       return (int)cudaErrorInvalidValue;
   }
-  {  // qw as (N, 64, C) bytes; one box is BN columns of one chunk
-    const cuuint64_t dims[3] = {n64, kB, c64};
-    const cuuint64_t strides[2] = {n64, kB * n64};
-    const cuuint32_t box[3] = {BN, kB, 1};
+  {  // qw as (N, 64, C, E) bytes; one box is BN columns of one chunk
+    const cuuint64_t dims[4] = {n64, kB, c64, e64};
+    const cuuint64_t strides[3] = {n64, kB * n64, kB * n64 * c64};
+    const cuuint32_t box[4] = {BN, kB, 1, 1};
     const CUtensorMapSwizzle sw = BN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                   : BN == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                              : CU_TENSOR_MAP_SWIZZLE_32B;
-    if (!encode(enc, &qw_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, qw, dims,
+    if (!encode(enc, &qw_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, qw, dims,
                 strides, box, sw))
       return (int)cudaErrorInvalidValue;
   }
-  {  // sx as (M, C) f32, sw as (N, C) f32
-    const cuuint64_t dx[2] = {m64, c64}, dw[2] = {n64, c64};
-    const cuuint64_t sxs[1] = {4 * m64}, sws[1] = {4 * n64};
-    const cuuint32_t bx[2] = {BM, 1}, bw[2] = {BN, 1};
-    if (!encode(enc, &sx_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, sx, dx, sxs,
+  {  // sx as (M, C, E) f32, sw as (N, C, E) f32
+    const cuuint64_t dx[3] = {m64, c64, e64}, dw[3] = {n64, c64, e64};
+    const cuuint64_t sxs[2] = {4 * m64, 4 * m64 * c64};
+    const cuuint64_t sws[2] = {4 * n64, 4 * n64 * c64};
+    const cuuint32_t bx[3] = {BM, 1, 1}, bw[3] = {BN, 1, 1};
+    if (!encode(enc, &sx_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, sx, dx, sxs,
                 bx, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-        !encode(enc, &sw_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, sw, dw, sws,
+        !encode(enc, &sw_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, sw, dw, sws,
                 bw, CU_TENSOR_MAP_SWIZZLE_NONE))
       return (int)cudaErrorInvalidValue;
   }
@@ -539,7 +553,10 @@ int launch(const void* qx, const void* sx, const void* qw, const void* sw,
     attr_bytes = smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
+  const long long x_blocks = static_cast<long long>(E) * ((M + BM - 1) / BM);
+  if (x_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cfg.gridDim = dim3(static_cast<unsigned>(x_blocks), (N + BN - 1) / BN,
+                     splits);
   cfg.blockDim = dim3(K::kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -559,25 +576,28 @@ int launch(const void* qx, const void* sx, const void* qw, const void* sw,
 
 }  // namespace
 
-// M must be a multiple of 8, N of 16, 1 <= splits <= min(C, 8), every
-// pointer 16-byte aligned, `config` an index of the table below (mirrored by
-// CONFIGS in kernels/timefloats_matmul.py) and the split's terms must fit
-// in shared memory. The Python wrapper pads and checks all of it.
-extern "C" int tf_matmul(const void* qx, const void* sx, const void* qw,
-                         const void* sw, void* out, int C, int M, int N,
-                         int config, int splits, int adc, float fs,
-                         float levels, float step, void* stream) {
-  if (C <= 0 || M <= 0 || M % 8 != 0 || N <= 0 || N % 16 != 0 ||
+// E experts (E = 1: one (C,M,64) x (C,64,N) product) of contiguous
+// (E,C,M,64), (E,C,M), (E,C,64,N), (E,C,N) operands into (E,M,N). M must be
+// a multiple of 8, N of 16, 1 <= splits <= min(C, 8), every pointer 16-byte
+// aligned, `config` an index of the table below (mirrored by CONFIGS in
+// kernels/timefloats_matmul.py) and the split's terms must fit in shared
+// memory. The Python wrapper pads and checks all of it.
+extern "C" int tf_matmul_experts(const void* qx, const void* sx,
+                                 const void* qw, const void* sw, void* out,
+                                 int E, int C, int M, int N, int config,
+                                 int splits, int adc, float fs, float levels,
+                                 float step, void* stream) {
+  if (E <= 0 || C <= 0 || M <= 0 || M % 8 != 0 || N <= 0 || N % 16 != 0 ||
       splits < 1 || splits > kMaxSplits || splits > C)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define K1_CASE(id, NT, WM, WN, STAGES)                                    \
   case id:                                                                 \
     return adc ? launch<NT, WM, WN, STAGES, true>(                         \
-                     qx, sx, qw, sw, out, C, M, N, splits, fs, levels,     \
+                     qx, sx, qw, sw, out, E, C, M, N, splits, fs, levels,  \
                      step, st)                                             \
                : launch<NT, WM, WN, STAGES, false>(                        \
-                     qx, sx, qw, sw, out, C, M, N, splits, fs, levels,     \
+                     qx, sx, qw, sw, out, E, C, M, N, splits, fs, levels,  \
                      step, st);
   switch (config) {
     K1_CASE(0, 1, 1, 1, 16)   //   8 x  32: decode

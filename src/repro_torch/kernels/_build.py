@@ -36,9 +36,9 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # point returns an int (its cudaGetLastError()).
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "timefloats_matmul": {
-        # qx, sx, qw, sw, out, C, M, N, config, splits, adc, fs, levels,
-        # step, stream
-        "tf_matmul": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P]},
+        # qx, sx, qw, sw, out, E, C, M, N, config, splits, adc, fs,
+        # levels, step, stream
+        "tf_matmul_experts": [_P] * 5 + [_I] * 7 + [_F] * 3 + [_P]},
     "timefloats_matmul_transposed": {
         # qg, sg, qw, sw, out, D, M, C, splits, stream
         "tf_matmul_t": [_P] * 5 + [_I] * 4 + [_P]},

@@ -7,7 +7,8 @@ to 8 rows, N to 16 columns; pad blocks carry scale 1 and zero planes, so
 they contribute nothing; the kernel masks the edges of its own tiles), runs
 K1 and slices the result back.
 ``quantized_matmul`` does the same on operands already quantized (the
-training path's cache entries). ``timefloats_matmul_transposed(g, qw,
+training path's cache entries), ``quantized_matmul_experts`` on an MoE
+layer's stacked expert operands (one K1 launch for the group). ``timefloats_matmul_transposed(g, qw,
 k_dim, cfg)`` is the backward's dx: it quantizes only ``g``, along its
 contraction dim N, pads M, C and N, and runs K2 on the stored planes.
 """
@@ -52,6 +53,26 @@ def quantized_matmul(qx: QuantizedOperand, qw: QuantizedOperand,
     """K1 on quantized operands; returns the padded (M', N') product."""
     return kernel_mod.timefloats_matmul_quantized(*padded_operands(qx, qw),
                                                   cfg=cfg)
+
+
+def padded_expert_operands(qx: QuantizedOperand, qw: QuantizedOperand
+                           ) -> tuple[torch.Tensor, ...]:
+    """Stacked expert operands, (E,C,M,B) and (E,C,B,N) with (E,C,M),
+    (E,C,N) scales, padded as :func:`padded_operands` pads one expert."""
+    blk = qx.q.shape[-1]
+    bm, bn = kernel_mod.PAD_M, kernel_mod.PAD_N
+    return (_pad_to(qx.q, (1, 1, bm, blk)).contiguous(),
+            _pad_to(qx.scale, (1, 1, bm), pad_value=1.0).contiguous(),
+            _pad_to(qw.q, (1, 1, blk, bn)).contiguous(),
+            _pad_to(qw.scale, (1, 1, bn), pad_value=1.0).contiguous())
+
+
+def quantized_matmul_experts(qx: QuantizedOperand, qw: QuantizedOperand,
+                             cfg: TFConfig = DEFAULT) -> torch.Tensor:
+    """K1 over a group of experts on stacked quantized operands; returns
+    the padded (E, M', N') products."""
+    return kernel_mod.timefloats_matmul_experts(
+        *padded_expert_operands(qx, qw), cfg=cfg)
 
 
 def timefloats_matmul(x: torch.Tensor, w: torch.Tensor,

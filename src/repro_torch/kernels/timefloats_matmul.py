@@ -7,6 +7,9 @@ dx = g @ W^T of the stored weight planes, replaces ``_kernel_transposed`` /
 ``timefloats_matmul_transposed_quantized``; its source is
 ``csrc/timefloats_matmul_transposed.cu``. Each source's header says what
 bounds the kernel on the card and how its design meets its contract.
+``timefloats_matmul_experts`` launches K1 once over a group of experts,
+the counterpart of the reference's ``jax.vmap`` over
+``timefloats_matmul_quantized`` in an MoE layer.
 
 Beside each kernel: its plain PyTorch version, which the CPU tests run and
 ``chip_smoke.py`` holds the kernel against (K1's is the chunk-ordered
@@ -37,7 +40,7 @@ SMEM_LIMIT = 232448        # shared memory a block may use on the card
 
 class K1Config(NamedTuple):
     """One of K1's tile configurations, as ``csrc/timefloats_matmul.cu``'s
-    switch in ``tf_matmul`` lists them: ``nt`` n8 token tiles per consumer
+    switch in ``tf_matmul_experts`` lists them: ``nt`` n8 token tiles per consumer
     warp, ``wm`` x ``wn`` consumer warps (32 columns each), ``stages`` ring
     depth."""
 
@@ -86,7 +89,7 @@ def split_chunks(c: int, splits: int) -> list[tuple[int, int]]:
     return [(r * c // splits, (r + 1) * c // splits) for r in range(splits)]
 
 
-def k1_plan(m: int, c: int, n: int, sms: int) -> K1Plan:
+def k1_plan(m: int, c: int, n: int, sms: int, experts: int = 1) -> K1Plan:
     """K1's tile and split for an (M, C chunks, N) call on a card with
     ``sms`` SMs. Decode (M <= 8) and prefill (M <= 256) are bytes-bound with
     few tiles: the widest tile that fills the card, else the narrowest,
@@ -94,9 +97,11 @@ def k1_plan(m: int, c: int, n: int, sms: int) -> K1Plan:
     it (at most 8, at most C, terms fitting shared memory), else the most
     that fit. Larger M is operations-bound: the larger tile if it fills the
     card, else the smaller, unsplit (a split's terms would not fit). The
-    choices follow chip_smoke.py's sweeps on the H100 (PERF.md)."""
+    choices follow chip_smoke.py's sweeps on the H100 (PERF.md). A launch
+    over ``experts`` experts has that many times the tiles."""
     fill = FILL * sms
-    tiles = lambda i: (-(-m // CONFIGS[i].bm)) * (-(-n // CONFIGS[i].bn))  # noqa: E731
+    tiles = lambda i: (experts * (-(-m // CONFIGS[i].bm))  # noqa: E731
+                       * (-(-n // CONFIGS[i].bn)))
     if m > SPLIT_MAX_M:
         for i in LARGE_M:
             if tiles(i) >= fill:
@@ -176,30 +181,79 @@ def timefloats_matmul_quantized(qx: torch.Tensor, sx: torch.Tensor,
     _check(qx, sx, qw, sw, cfg)
     if not dispatch.use_kernel(qx):
         return timefloats_matmul_plain(qx, sx, qw, sw, cfg)
-    if not all(t.is_cuda and t.device == qx.device for t in (sx, qw, sw)):
-        raise ValueError("all operands must lie on the same CUDA device")
-    if any(t.data_ptr() % 16 for t in (qx, sx, qw, sw)):
-        raise ValueError("K1's tensor-map copies need 16-byte-aligned "
-                         "operands")
-    c, m, _ = qx.shape
-    n = qw.shape[2]
-    if plan is None:
-        plan = k1_plan(m, c, n, _build.sm_count(qx.device))
-    check_plan(plan, m, c, n)
-    out = torch.empty((m, n), dtype=torch.float32, device=qx.device)
-    adc = cfg.adc_bits is not None
-    fs, levels, step = ((float(v) for v in adc_constants(cfg)) if adc
-                        else (1.0, 1.0, 1.0))
-    err = _build.load("timefloats_matmul").tf_matmul(
-        qx.data_ptr(), sx.data_ptr(), qw.data_ptr(), sw.data_ptr(),
-        out.data_ptr(), c, m, n, plan.config, plan.splits, int(adc), fs,
-        levels, step, _build.stream_ptr())
-    _build.check(err, "timefloats_matmul")
+    out = _launch(qx[None], sx[None], qw[None], sw[None], cfg, plan)[0]
     timefloats_matmul_quantized.launches += 1
     return out
 
 
 timefloats_matmul_quantized.launches = 0
+
+
+def _launch(qx, sx, qw, sw, cfg: TFConfig, plan: K1Plan | None
+            ) -> torch.Tensor:
+    """One K1 launch over the E experts of checked (E,C,M,64), (E,C,M),
+    (E,C,64,N), (E,C,N) CUDA operands -> (E,M,N) f32."""
+    if not all(t.is_cuda and t.device == qx.device for t in (sx, qw, sw)):
+        raise ValueError("all operands must lie on the same CUDA device")
+    if any(t.data_ptr() % 16 for t in (qx, sx, qw, sw)):
+        raise ValueError("K1's tensor-map copies need 16-byte-aligned "
+                         "operands")
+    e, c, m, _ = qx.shape
+    n = qw.shape[3]
+    if plan is None:
+        plan = k1_plan(m, c, n, _build.sm_count(qx.device), experts=e)
+    check_plan(plan, m, c, n)
+    out = torch.empty((e, m, n), dtype=torch.float32, device=qx.device)
+    adc = cfg.adc_bits is not None
+    fs, levels, step = ((float(v) for v in adc_constants(cfg)) if adc
+                        else (1.0, 1.0, 1.0))
+    err = _build.load("timefloats_matmul").tf_matmul_experts(
+        qx.data_ptr(), sx.data_ptr(), qw.data_ptr(), sw.data_ptr(),
+        out.data_ptr(), e, c, m, n, plan.config, plan.splits, int(adc), fs,
+        levels, step, _build.stream_ptr())
+    _build.check(err, "timefloats_matmul")
+    return out
+
+
+def timefloats_matmul_experts_plain(qx: torch.Tensor, sx: torch.Tensor,
+                                    qw: torch.Tensor, sw: torch.Tensor,
+                                    cfg: TFConfig) -> torch.Tensor:
+    """The expert launch's plain version: the 2-D plain version, expert by
+    expert."""
+    return torch.stack([timefloats_matmul_plain(qx[e], sx[e], qw[e], sw[e],
+                                                cfg)
+                        for e in range(qx.shape[0])])
+
+
+def timefloats_matmul_experts(qx: torch.Tensor, sx: torch.Tensor,
+                              qw: torch.Tensor, sw: torch.Tensor, *,
+                              cfg: TFConfig,
+                              plan: K1Plan | None = None) -> torch.Tensor:
+    """E experts' (C,M,64) x (C,64,N) products: qx (E,C,M,64), sx (E,C,M),
+    qw (E,C,64,N), sw (E,C,N) -> (E,M,N) f32, each expert's bitwise the 2-D
+    call on its slices. Padded as the 2-D call is (M to ``PAD_M``, N to
+    ``PAD_N``). A CUDA tensor launches K1 once for all E (or raises) with
+    ``plan`` (default :func:`k1_plan` over E experts' tiles); a CPU tensor
+    runs the plain version."""
+    if qx.ndim != 4 or qw.ndim != 4 or sx.ndim != 3 or sw.ndim != 3:
+        raise ValueError(f"expert operands {tuple(qx.shape)}, "
+                         f"{tuple(qw.shape)}: need (E,C,M,{BLOCK}) and "
+                         f"(E,C,{BLOCK},N) with (E,C,M), (E,C,N) scales")
+    e = qx.shape[0]
+    if not e or any(t.shape[0] != e for t in (sx, qw, sw)):
+        raise ValueError("every operand needs the same number of experts")
+    _check(qx[0], sx[0], qw[0], sw[0], cfg)
+    for t in (qx, sx, qw, sw):
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if not dispatch.use_kernel(qx):
+        return timefloats_matmul_experts_plain(qx, sx, qw, sw, cfg)
+    out = _launch(qx, sx, qw, sw, cfg, plan)
+    timefloats_matmul_experts.launches += 1
+    return out
+
+
+timefloats_matmul_experts.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 Serves ``--arch`` (qwen3-0.6b by default; ``--n-layers`` cuts its depth,
 as the reference's ``get_config`` overrides do, so ``--arch
-deepseek-v3-671b --n-layers 3`` runs deepseek-v3's three dense MLA layers)
+deepseek-v3-671b --n-layers 3`` runs deepseek-v3's three dense MLA layers,
+and ``--n-layers 4 --param-dtype bfloat16`` adds its first MoE layer)
 at full width (random weights from ``--seed``, TimeFloats
 ``mode="pallas"``, bf16 activations) through ``Engine(slots=4,
 max_len=512)``, dense by default and with ``--paged`` on the paged pool
@@ -33,7 +34,8 @@ fused decode each) run with the profiler off and ``--steps`` more under
 
 Run from the repository root on a machine with an NVIDIA GPU:
 ``PYTHONPATH=src python3 -m repro_torch.launch.profile_decode [--paged]
-[--arch deepseek-v3-671b --n-layers 3] [--no-graphs]``.
+[--arch deepseek-v3-671b --n-layers 3] [--param-dtype bfloat16]
+[--no-graphs]``.
 """
 from __future__ import annotations
 
@@ -60,13 +62,17 @@ HAND_KERNELS = {"K1": "tf_mma_kernel", "K2": "tf_matmul_t_kernel",
 
 def step_weights(params) -> list:
     """Every weight one decode step contracts through ``dense``, as it
-    reshapes it (``wo`` over its two leading dims), then the head (the
-    untied ``lm_head`` or the tied table's transpose). MLA's ``wkv_b`` is
-    not among them: the absorbed decode reads it through f32 einsums."""
+    reshapes it (``wo`` over its two leading dims), an MoE layer's (E, K,
+    N) expert stacks as they are, then the head (the untied ``lm_head`` or
+    the tied table's transpose). MLA's ``wkv_b`` is not among them (the
+    absorbed decode reads it through f32 einsums), nor the f32 router."""
     ws = []
     for lp in params["layers"]:
         for name, w in {**lp["mixer"], **lp["ffn"]}.items():
-            if w.ndim < 2 or name == "wkv_b":
+            if w.ndim < 2 or name in ("wkv_b", "router"):
+                continue
+            if name in ("wg", "wu", "wd") and w.ndim == 3:
+                ws.append(w)
                 continue
             k = math.prod(w.shape[:-1]) if name == "wo" else w.shape[0]
             ws.append(w.reshape(k, -1))
@@ -82,7 +88,10 @@ def weight_quant_ms(params, cfg, reps: int = 3) -> float:
 
     def run():
         for w in ws:
-            tf.quantize_weight(tf._pow2_prescale(w, cfg.tf)[0], cfg.tf)
+            if w.ndim == 3:
+                tf.prepare_weight_stack(w, cfg.tf)
+            else:
+                tf.prepare_weight(w, cfg.tf)
 
     run()
     start = torch.cuda.Event(enable_timing=True)
@@ -175,6 +184,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="override the configuration's depth")
+    ap.add_argument("--param-dtype", default=None,
+                    help="override the parameters' dtype (bfloat16 for "
+                    "the MoE cut)")
     ap.add_argument("--graphs", action=argparse.BooleanOptionalAction,
                     default=True, help="replay captured CUDA graphs (the "
                     "engine's default); --no-graphs steps eagerly")
@@ -182,7 +194,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
         return 1
-    over = {} if args.n_layers is None else {"n_layers": args.n_layers}
+    over = {k: v for k, v in (("n_layers", args.n_layers),
+                              ("param_dtype", args.param_dtype))
+            if v is not None}
     cfg = get_config(args.arch, tf=tf.TFConfig(mode="pallas"), **over)
     params = model_lib.init(cfg, args.seed)
     print(f"device: {torch.cuda.get_device_name(0)}; {cfg.name} "

@@ -1,7 +1,7 @@
 """Shared model machinery (port of ``repro.models.common``, the parts the
-dense blocks run, GQA and MLA): parameter specs and their initialization, the
-quantization-dispatched dense layer with its per-step weight cache, norms,
-rotary embeddings and the MLP.
+dense and MoE blocks run, GQA and MLA): parameter specs and their
+initialization, the quantization-dispatched dense layer with its per-step
+weight cache, norms, rotary embeddings, the MLP and the experts' SwiGLU.
 
 Weights keep the reference's layout: a projection weight is (K, ...) and is
 contracted over its leading dim(s) exactly as ``dense``/``dense_in`` do
@@ -82,12 +82,15 @@ def init_params(specs: Tree, gen: torch.Generator, dtype: torch.dtype,
 # rule:
 #   dense    — w.reshape(w.shape[0], -1)   (wq/wk/wv, MLP, lm_head)
 #   dense_in — w.reshape(-1, w.shape[-1])  (wo: contract leading dims)
+#   expert   — each expert's (d, f) slice under the dense rule, its own
+#              prescale (MoE wg/wu/wd; the reference's vmapped
+#              prepare_weight), quantized in groups of experts
 # plus the tied head, the transposed read of the embedding table, prepared
 # from embed.T and keyed on the table. Excluded: <2-D leaves, non-float,
 # embeddings/meta tables, the MoE router, conv kernels.
 # ---------------------------------------------------------------------------
 
-_EXPERT_LEAVES = ("wg", "wu", "wd")  # MoE expert stacks (not ported yet)
+_EXPERT_LEAVES = ("wg", "wu", "wd")  # MoE expert stacks (E, d, f)/(E, f, d)
 _DENSE_IN_LEAVES = ("wo",)           # consumed via dense_in
 
 
@@ -134,7 +137,9 @@ def _prepare_by_rule(leaf: Tensor, rule: str, cfg: ModelConfig
     if rule == "dense_in":
         return timefloats.prepare_weight(leaf.reshape(-1, leaf.shape[-1]),
                                          cfg.tf)
-    raise NotImplementedError(f"weight-cache rule {rule!r} is not ported yet")
+    if rule == "expert":
+        return timefloats.prepare_weight_stack(leaf, cfg.tf)
+    raise ValueError(rule)
 
 
 # {id(param): (param, PreparedOperand)}: the stored reference keeps the id
@@ -322,3 +327,30 @@ def mlp_apply(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig
         return dense(g * u, params["w_down"], cfg)
     u = _gelu(dense(x, params["w_up"], cfg))
     return dense(u, params["w_down"], cfg)
+
+
+def expert_dense(x: Tensor, w: Tensor, cfg: ModelConfig,
+                 pw: Optional[timefloats.PreparedOperand] = None) -> Tensor:
+    """The reference's ``dense`` vmapped over experts: x (E, C, K) @ w (E,
+    K, N) -> (E, C, N) in the activation dtype, expert e exactly
+    ``dense(x[e], w[e])``. ``pw`` is the stack's cache entry, looked up on
+    the (E, K, N) leaf by the caller."""
+    act = cfg.activation_dtype
+    if cfg.quant == "timefloats":
+        y = timefloats.expert_linear(x, w, pw, cfg.tf)
+    else:
+        y = x.to(act) @ w.to(act)
+    return y.to(act)
+
+
+def expert_mlp_apply(wg: Tensor, wu: Tensor, wd: Tensor, x: Tensor,
+                     cfg: ModelConfig, pws=None) -> Tensor:
+    """SwiGLU on explicit weights: the routed experts' (E, d, f) stacks on
+    an (E, C, d) dispatch buffer (the reference vmaps it over E), or the
+    shared expert's 2-D weights on (T, d) tokens. ``pws`` is an optional
+    (pwg, pwu, pwd) triple of cache entries for the stacks."""
+    pg, pu, pd = pws if pws is not None else (None, None, None)
+    proj = expert_dense if wg.ndim == 3 else dense
+    g = _silu(proj(x, wg, cfg, pw=pg))
+    u = proj(x, wu, cfg, pw=pu)
+    return proj(g * u, wd, cfg, pw=pd)

@@ -1,23 +1,30 @@
-"""LMModel (port of ``repro.models.model``) for configurations whose
-layers are all dense blocks: the dense family (GQA attention) and the
-dense layers of the ``moe`` family (MLA attention, FFN width
-``moe.dense_d_ff``; deepseek-v3 cut to its first three layers). Parameters,
-the layer loop, the full-sequence training forward and loss, the slot
-cache, the paged cache (DESIGN.md §8) and the serving steps ``prefill`` /
-``decode_step`` / ``verify_step`` (the speculative chain verify, DESIGN.md
-§12) / ``prefill_into_slots`` (resumable at per-row offsets for chunked
-prefill, DESIGN.md §10) / ``prefill_into_pages``.
+"""LMModel (port of ``repro.models.model``) for the dense family (GQA
+attention) and the ``moe`` family (MLA or GQA attention; the first
+``moe.first_k_dense`` layers dense blocks of FFN width ``moe.dense_d_ff``,
+the rest MoE blocks, models/moe.py). Parameters, the layer loop with the
+MoE layers' auxiliary losses summed over layers, the full-sequence
+training forward and loss, the slot cache, the paged cache (DESIGN.md §8)
+and the serving steps ``prefill`` / ``decode_step`` / ``verify_step`` (the
+speculative chain verify, DESIGN.md §12) / ``prefill_into_slots``
+(resumable at per-row offsets for chunked prefill, DESIGN.md §10) /
+``prefill_into_pages``.
 
 The reference stacks layers and scans them; here the parameters hold a list
-of per-layer dicts (``params["layers"]``) and a Python loop walks it. Its
-``remat="full"`` (``jax.checkpoint`` of the scan body) becomes
-``torch.utils.checkpoint`` around each block. A layer's cache is a
+of per-layer dicts (``params["layers"]``) and a Python loop walks it, each
+layer's kind from ``cfg.layer_kinds()``. Its ``remat="full"``
+(``jax.checkpoint`` of the scan body) becomes ``torch.utils.checkpoint``
+around each block; ``remat="dots"`` (the reference's
+``dots_with_no_batch_dims_saveable`` policy) checkpoints each block but
+keeps its 2-D products through a selective checkpoint policy: each
+``aten.mm`` and, at ``quant="timefloats"``, each projection's quantized
+planes and output (``timefloats.PROJECTION_OPS``). A layer's cache is a
 ``KVCache``/``PagedKVCache`` (GQA) or an ``MLACache``/``PagedMLACache``;
-every function below that touches caches works on their fields generically.
-MoE layers, SSM, hybrid, audio and VLM come with later slices.
+every function below that touches caches works on their fields
+generically. SSM, hybrid, audio and VLM come with later slices.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -26,9 +33,11 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import timefloats
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import common
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache, MaskSpec, PagedKVCache
 from repro_torch.models.common import (ParamSpec, dense, init_params,
                                        mlp_apply, mlp_specs, norm_apply,
@@ -38,17 +47,13 @@ Tensor = torch.Tensor
 Tree = Any
 # A layer's cache: GQA K/V or MLA latents, on slot rows or on the page pool.
 Cache = KVCache | PagedKVCache | mla_mod.MLACache | mla_mod.PagedMLACache
+AUX_KEYS = ("lb_loss", "z_loss", "dropped_frac")   # the reference's AUX_ZERO
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Every layer must be a dense block of a ported family."""
+    """Every layer must be a dense or MoE block of a ported family."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if "moe" in cfg.layer_kinds():
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers come with the MoE slice (models/moe.py);"
-            f" only its first {cfg.moe.first_k_dense} dense layers run "
-            f"(n_layers <= {cfg.moe.first_k_dense})")
 
 
 def _uses_mla(cfg: ModelConfig) -> bool:
@@ -62,23 +67,31 @@ def default_mask(cfg: ModelConfig) -> MaskSpec:
                     window=cfg.sliding_window)
 
 
-def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """A dense block: the MLA or GQA mixer and an MLP, of width
-    ``moe.dense_d_ff`` in a ``moe``-family config's dense layers."""
-    d_ff = cfg.d_ff
-    if cfg.moe and cfg.moe.dense_d_ff:
-        d_ff = cfg.moe.dense_d_ff
+def block_specs(kind: str, cfg: ModelConfig) -> Dict[str, Any]:
+    """A block: the MLA or GQA mixer, then an MoE layer (``kind="moe"``)
+    or an MLP, of width ``moe.dense_d_ff`` in a ``moe``-family config's
+    dense layers."""
     mixer = (mla_mod.mla_specs(cfg) if _uses_mla(cfg)
              else attn_mod.attention_specs(cfg))
+    if kind == "moe":
+        ffn = moe_mod.moe_specs(cfg)
+    else:
+        d_ff = cfg.d_ff
+        if cfg.moe and cfg.moe.dense_d_ff:
+            d_ff = cfg.moe.dense_d_ff
+        ffn = mlp_specs(cfg, d_ff)
     return {"norm1": norm_specs(cfg), "mixer": mixer,
-            "norm2": norm_specs(cfg), "ffn": mlp_specs(cfg, d_ff)}
+            "norm2": norm_specs(cfg), "ffn": ffn}
 
 
-def block_apply(params: Dict[str, Any], x: Tensor, cfg: ModelConfig, *,
-                positions: Tensor, cache: Optional[Cache],
-                lengths: Optional[Tensor], kv_cap: Optional[int] = None,
-                fused_paged: bool = True, spec_verify: bool = False
-                ) -> tuple[Tensor, Optional[Cache]]:
+def block_apply(kind: str, params: Dict[str, Any], x: Tensor,
+                cfg: ModelConfig, *, positions: Tensor,
+                cache: Optional[Cache], lengths: Optional[Tensor],
+                kv_cap: Optional[int] = None, fused_paged: bool = True,
+                spec_verify: bool = False
+                ) -> tuple[Tensor, Optional[Cache], Dict[str, Tensor]]:
+    """One block -> (x, cache, aux); aux holds the MoE layer's losses and
+    dropped share (zeros for a dense block)."""
     h = norm_apply(params["norm1"], x, cfg)
     mixer = mla_mod.mla_apply if _uses_mla(cfg) else attn_mod.attention_apply
     y, cache = mixer(
@@ -87,7 +100,18 @@ def block_apply(params: Dict[str, Any], x: Tensor, cfg: ModelConfig, *,
         spec_verify=spec_verify)
     x = x + y
     h2 = norm_apply(params["norm2"], x, cfg)
-    return x + mlp_apply(params["ffn"], h2, cfg), cache
+    if kind != "moe":
+        return x + mlp_apply(params["ffn"], h2, cfg), cache, {}
+    # A ragged or suffix prefill tells the router which positions are
+    # real, so capacity follows the real tokens and pads take no expert
+    # slot; decode (S == 1) and the verify keep every token. The verify
+    # routes drop-free: it must keep what single-token decodes keep.
+    tok_valid = None
+    if lengths is not None and x.shape[1] > 1 and not spec_verify:
+        tok_valid = positions < lengths[:, None]
+    y2, aux = moe_mod.moe_apply(params["ffn"], h2, cfg, token_mask=tok_valid,
+                                drop_free=spec_verify)
+    return x + y2, cache, aux
 
 
 def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -95,7 +119,7 @@ def model_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                            init="embed", scale=0.02),
-        "layers": [block_specs(cfg) for _ in range(cfg.n_layers)],
+        "layers": [block_specs(kind, cfg) for kind in cfg.layer_kinds()],
         "final_norm": norm_specs(cfg),
     }
     if not cfg.tie_embeddings:
@@ -134,37 +158,64 @@ def _run_layers(params: Tree, x: Tensor, cfg: ModelConfig, *,
                 fused_paged: bool = True, spec_verify: bool = False
                 ) -> tuple[Tensor, List[Cache]]:
     new = []
-    for lp, lc in zip(params["layers"], caches):
-        x, lc = block_apply(lp, x, cfg, positions=positions, cache=lc,
-                            lengths=lengths, kv_cap=kv_cap,
-                            fused_paged=fused_paged, spec_verify=spec_verify)
+    for kind, lp, lc in zip(cfg.layer_kinds(), params["layers"], caches):
+        x, lc, _ = block_apply(kind, lp, x, cfg, positions=positions,
+                               cache=lc, lengths=lengths, kv_cap=kv_cap,
+                               fused_paged=fused_paged,
+                               spec_verify=spec_verify)
         new.append(lc)
     return x, new
 
 
+# remat="dots": the 2-D products a checkpointed block keeps, as the
+# reference's ``dots_with_no_batch_dims_saveable`` policy keeps them; at
+# quant="timefloats" a projection's quantizers and product (the expert
+# products carry a batch dim and are recomputed, as in the reference).
+_DOTS_SAVED = (torch.ops.aten.mm.default, *timefloats.PROJECTION_OPS)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _sequence_layers(params: Tree, x: Tensor, cfg: ModelConfig,
-                     positions: Tensor, remat: str) -> Tensor:
-    """The layer loop of the full-sequence forward. With ``remat="full"``
-    each block is checkpointed: its activations are dropped after the
-    forward and recomputed in the backward. The recomputation runs after
-    the loss has left its weight-cache scope, so each block reinstalls the
-    table it saw in the forward."""
-    if remat == "dots":
-        raise NotImplementedError('remat="dots" is not ported yet')
+                     positions: Tensor, remat: str
+                     ) -> tuple[Tensor, Dict[str, Tensor]]:
+    """The layer loop of the full-sequence forward -> (x, aux summed over
+    layers in f32, in layer order from zero, as the reference's scan
+    carries it). With ``remat="full"`` each block is checkpointed: its
+    activations are dropped after the forward and recomputed in the
+    backward; ``"dots"`` keeps the block's 2-D products (``_DOTS_SAVED``).
+    The recomputation runs after the loss has left its weight-cache scope,
+    so each block reinstalls the table it saw in the forward."""
     table = common.active_weight_cache()
 
-    def block(lp, h):
+    def block(kind, lp, h):
         with common.weight_cache_scope(table):
-            return block_apply(lp, h, cfg, positions=positions, cache=None,
-                               lengths=None)[0]
+            out, _, aux = block_apply(kind, lp, h, cfg, positions=positions,
+                                      cache=None, lengths=None)
+        return (out, *(aux[k] for k in AUX_KEYS)) if aux else (out,)
 
-    for lp in params["layers"]:
-        if remat == "full":
-            x = torch.utils.checkpoint.checkpoint(
-                block, lp, x, use_reentrant=False, preserve_rng_state=False)
+    aux_tot = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+               for k in AUX_KEYS}
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    for kind, lp in zip(cfg.layer_kinds(), params["layers"]):
+        if remat in ("full", "dots"):
+            out = torch.utils.checkpoint.checkpoint(block, kind, lp, x, **kw)
         else:
-            x = block(lp, x)
-    return x
+            out = block(kind, lp, x)
+        x = out[0]
+        for key, v in zip(AUX_KEYS, out[1:]):
+            aux_tot[key] = aux_tot[key] + v.to(torch.float32)
+    return x, aux_tot
 
 
 def forward(params: Tree, batch: Dict[str, Tensor], cfg: ModelConfig, *,
@@ -175,11 +226,9 @@ def forward(params: Tree, batch: Dict[str, Tensor], cfg: ModelConfig, *,
     x = embed_tokens(params, batch["tokens"], cfg)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    x = _sequence_layers(params, x, cfg, positions,
-                         cfg.remat if train else "none")
+    x, aux = _sequence_layers(params, x, cfg, positions,
+                              cfg.remat if train else "none")
     x = norm_apply(params["final_norm"], x, cfg)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"lb_loss": zero, "z_loss": zero, "dropped_frac": zero}
     return _head(params, x, cfg), aux
 
 
@@ -196,8 +245,9 @@ def _nll(logits: Tensor, labels: Tensor) -> Tensor:
 
 def loss_fn(params: Tree, batch: Dict[str, Tensor], cfg: ModelConfig
             ) -> tuple[Tensor, Dict[str, Tensor]]:
-    """Masked mean next-token cross entropy (plus the MoE aux terms, zero
-    for the dense family), and the reference's metrics."""
+    """Masked mean next-token cross entropy plus the MoE layers' load-
+    balance and router-z losses (zero for the dense family), and the
+    reference's metrics (``dropped_frac`` summed over the MoE layers)."""
     logits, aux = forward(params, batch, cfg, train=True)
     mask = batch["mask"].to(torch.float32)
     nll = _nll(logits, batch["labels"])
@@ -248,10 +298,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def paged_supported(cfg: ModelConfig) -> bool:
     """The paged pool covers the attention families whose K/V (or MLA
     latents) at a position are a pure function of the token prefix (no
-    meta-token or patch prefix); of those the port has the dense family
-    and the dense layers of the MLA family."""
+    meta-token or patch prefix): of those the port has the dense family
+    and the ``moe`` family, dense and MoE layers alike."""
     return (cfg.family in ("dense", "moe")
-            and all(k == "dense" for k in cfg.layer_kinds())
+            and all(k in ("dense", "moe") for k in cfg.layer_kinds())
             and not cfg.num_prefix_tokens)
 
 

@@ -54,14 +54,14 @@ def percentile(xs, p: float) -> float:
 
 def launch_counters() -> tuple:
     """The kernel wrappers whose ``launches`` attribute counts their
-    launches (K1, K2, K3, K6, K4, K5)."""
+    launches (K1, K2, K3, K6, K4, K5, and K1 over experts)."""
     from repro_torch.kernels import paged, paged_attn, sampling
     from repro_torch.kernels import timefloats_matmul as tm
 
     return (tm.timefloats_matmul_quantized,
             tm.timefloats_matmul_transposed_quantized, sampling.sample,
             paged.gather_pages, paged_attn.paged_decode_attention,
-            paged_attn.paged_decode_mla)
+            paged_attn.paged_decode_mla, tm.timefloats_matmul_experts)
 
 
 @contextlib.contextmanager

@@ -167,9 +167,11 @@ def test_deepseek_config_and_dense_cut_match_reference():
     cut = get_config("deepseek-v3-671b", n_layers=3)
     assert cut.layer_kinds() == ("dense",) * 3 == \
         jget_config("deepseek-v3-671b", n_layers=3).layer_kinds()
-    assert TM.paged_supported(cut) and not TM.paged_supported(ct)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        TM.model_param_specs(get_config("deepseek-v3-671b", n_layers=4))
+    assert TM.paged_supported(cut) and TM.paged_supported(ct)
+    moe_cut = get_config("deepseek-v3-671b", n_layers=4)
+    assert moe_cut.layer_kinds() == ("dense",) * 3 + ("moe",) == \
+        jget_config("deepseek-v3-671b", n_layers=4).layer_kinds()
+    assert "router" in TM.model_param_specs(moe_cut)["layers"][3]["ffn"]
 
 
 # ---------------------------------------------------------------------------

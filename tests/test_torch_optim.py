@@ -106,6 +106,21 @@ def test_clip_by_global_norm_and_schedule_match_reference():
                                    rtol=1e-6)
 
 
+def test_warmup_cosine_bitwise_against_the_jitted_reference():
+    """400 steps of a 100/10000 warmup-cosine, over the warmup and 300
+    steps past it, equal bitwise the rate the reference's jitted update
+    computes (XLA's cosine, reciprocal and fused multiply-add, replayed on
+    the host in optim/schedules.py)."""
+    from repro.optim import schedules as jsched
+    from repro_torch.optim import schedules as tsched
+
+    jf = jax.jit(jsched.warmup_cosine(3e-4, 100, 10000))
+    tf = tsched.warmup_cosine(3e-4, 100, 10000)
+    want = np.array([jf(jnp.int32(s)) for s in range(400)], np.float32)
+    got = np.array([tf(s).numpy() for s in range(400)], np.float32)
+    assert_bitwise(got, want, "warmup_cosine(3e-4, 100, 10000)")
+
+
 def test_pack_unpack_and_quantize_scaled_bitwise():
     rng = np.random.default_rng(6)
     x = (rng.standard_normal(4000) * 2.0 ** rng.integers(-9, 5, 4000)
