@@ -94,6 +94,33 @@ gated equal; the comparison drains (plain versions, gather composition,
 dense engine, quant=none, unchunked, spec off) replay graphs, and the
 logit tap reads each captured step's top logits after every replay.
 
+7a. hw    — the hardware twin and the paper's exact mode. (a) The paper's
+             edge MLP (configs/timefloats_mlp.py: 64 -> 128 -> 128 -> 10,
+             batch 128, ``mode="exact"``) through the port's
+             ``timefloats.linear``: the forward and a backward from a
+             fixed cotangent on the card bitwise equal to the same
+             functions on the CPU (every layer's output, dx and dW), then
+             in-situ SGD steps with stochastic rounding on the card's
+             generator (the examples' ``insitu`` arm), gated on a falling
+             held-out loss. (b) The op census recorded during that card
+             forward (equal to the meta-device census), expanded with the
+             structural backward and scheduled on the MLP's placement: the
+             projected hardware TOPS/W within 1 % of the paper's 22.1,
+             printed with the step's energy, cell writes and latency bound.
+             (c) The full-width placements (tiles, macros, utilization) and
+             per-token forward pJ of qwen3-0.6b, deepseek-v3-671b and
+             kimi-k2-1t-a32b, shape-only. The serving and training phases
+             below keep the twin's energy books on (the engines' default):
+             the serve and paged drains gate per-request energy as
+             conserved (requests + idle = total, the prefix credit outside
+             it) and the wear book's read chunks as the executed tokens
+             times the per-token census; the serve phase also drains with
+             ``sched="cost"`` (every request finishes, every admission the
+             head of the scheduler's cost order, the first one its
+             host-side recomputation); the train phase books an
+             ``HwMonitor`` on its graph and eager drains (equal books, the
+             per-tile conservation invariant). Each phase line prints the
+             host seconds its censuses took.
 8. serve   — qwen3-0.6b at full width (28 layers, random weights from
              --seed), TimeFloats ``mode="pallas"``, bf16 activations,
              Engine(slots=4, max_len=512), 8 requests (prompts of 5-60
@@ -334,8 +361,11 @@ MLA_TRAIN_LAYERS = 1
 # exact tie: norms, softmax sums and the per-tensor prescale still see the
 # rows a call carries (PERF.md §7).
 MLA_SPEC_CHUNKED_SAME = 7
-PHASES = ("k1", "k2", "k3", "k6", "k4", "k5", "serve", "paged", "chunked",
-          "spec", "train", "mla", "moe", "train_mla")
+PHASES = ("k1", "k2", "k3", "k6", "k4", "k5", "hw", "serve", "paged",
+          "chunked", "spec", "train", "mla", "moe", "train_mla")
+HW_STEPS, HW_LR = 40, 0.08     # the edge MLP's in-situ SGD steps
+COST_NEW = 2                   # new tokens per request of the cost drain
+ENERGY_RTOL = 1e-9             # energy books: sums of the same terms
 
 
 class SmokeFailure(Exception):
@@ -1266,6 +1296,200 @@ def phase_k4(torch, cfg, seed: int) -> dict:
             "library_ms": per * lib}
 
 
+def phase_hw(torch, seed: int) -> None:
+    """The paper's edge MLP in exact mode on the card against the CPU, its
+    in-situ training, the twin's projection of its step and the
+    full-width placements (module docstring, 7a)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.timefloats_mlp import CONFIG as mlp
+    from repro_torch.core import float8
+    from repro_torch.core import timefloats as tf
+    from repro_torch.data.synthetic import classification_data
+    from repro_torch.hw import mapper
+    from repro_torch.hw import schedule as hs
+
+    dims = (mlp.in_dim, *mlp.hidden, mlp.n_classes)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x_all, y_all = classification_data(gen, 1024 + 512, mlp.in_dim,
+                                       mlp.n_classes, margin=0.35)
+    ws = [torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+          for k, n in zip(dims[:-1], dims[1:])]
+    x = x_all[:mlp.batch]
+    g = torch.randn((mlp.batch, mlp.n_classes), generator=gen,
+                    device="cuda")
+
+    def fwd(ws, x):
+        h = x
+        for i, w in enumerate(ws):
+            h = tf.linear(h, w, mlp.tf)
+            if i + 1 < len(ws):
+                h = torch.relu(h)
+        return h
+
+    # (a) forward and backward, the card against the CPU, bitwise.
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        wd = [w.to(dev, copy=True).requires_grad_() for w in ws]
+        xd = x.to(dev, copy=True).requires_grad_()
+        if dev == "cuda":
+            with tf.op_census() as events:
+                y = fwd(wd, xd)
+        else:
+            y = fwd(wd, xd)
+        y.backward(g.to(dev))
+        outs[dev] = [t.detach().cpu() for t in (y, xd.grad, *(
+            w.grad for w in wd))]
+    same = [torch.equal(a, b) for a, b in zip(outs["cuda"], outs["cpu"])]
+    print(f"hw: edge MLP {'-'.join(map(str, dims))} at batch {mlp.batch}, "
+          f"mode={mlp.tf.mode}: forward and backward on the card bitwise "
+          f"equal to the CPU's: y {same[0]}, dx {same[1]}, dW "
+          f"{same[2:]}", flush=True)
+    check(all(same), "hw: exact mode on the card differs from the CPU")
+    check(bool(torch.isfinite(outs["cuda"][0]).all()), "hw: y not finite")
+
+    # In-situ SGD: weights on the E4M4 grid, stochastic rounding.
+    x_ev, y_ev = x_all[1024:], y_all[1024:].long()
+    wi = [float8.quantize_scaled(w, generator=gen) for w in ws]
+
+    def held_out(ws):
+        with torch.no_grad():
+            lg = fwd(ws, x_ev)
+        return (float(torch.nn.functional.cross_entropy(lg, y_ev)),
+                float((lg.argmax(-1) == y_ev).float().mean()))
+
+    loss0, acc0 = held_out(wi)
+    t0 = time.monotonic()
+    for step in range(HW_STEPS):
+        idx = torch.randint(0, 1024, (mlp.batch,), generator=gen,
+                            device="cuda")
+        wg = [w.requires_grad_() for w in wi]
+        loss = torch.nn.functional.cross_entropy(fwd(wg, x_all[idx]),
+                                                 y_all[idx].long())
+        grads = torch.autograd.grad(loss, wg)
+        with torch.no_grad():
+            wi = [float8.quantize_scaled(w - HW_LR * gw, generator=gen)
+                  for w, gw in zip(wg, grads)]
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.monotonic() - t0) / HW_STEPS
+    loss1, acc1 = held_out(wi)
+    print(f"hw: {HW_STEPS} in-situ SGD steps (lr {HW_LR}, E4M4 weights, "
+          f"stochastic rounding) at {step_ms:.1f} ms a step: held-out loss "
+          f"{loss0:.4f} -> {loss1:.4f}, accuracy {acc0:.3f} -> {acc1:.3f}",
+          flush=True)
+    check(math.isfinite(loss1) and loss1 < loss0,
+          f"hw: the in-situ loss did not fall ({loss0} -> {loss1})")
+
+    # (b) the twin's projection of that step, from the card's census.
+    meta = hs.capture_census(hs.edge_mlp_forward, ws, x, mlp.tf)
+    check(sorted(events) == sorted(meta), f"hw: the card forward's census "
+          f"{events} is not the meta trace's {meta}")
+    pl, sched = hs.edge_mlp_schedule(mlp, events=events)
+    tops = sched.read.hardware_tops_per_watt
+    print(f"hw: twin of one training step: {pl.tiles} tiles, "
+          f"{sched.read.chunks} chunk reads ({len(events)} forward reads "
+          f"+ backward), hardware TOPS/W {tops:.4f} (paper 22.1), effective "
+          f"{sched.read.effective_tops_per_watt:.4f}; energy "
+          f"{sched.energy_pj * 1e-6:.4f} uJ (reads "
+          f"{sched.read.energy_pj * 1e-6:.4f}, writes "
+          f"{sched.write_energy_pj * 1e-6:.4f}), {sched.cells_written} cell "
+          f"writes, latency bound {sched.latency_ns * 1e-3:.3f} us",
+          flush=True)
+    check(abs(tops - 22.1) / 22.1 < 0.01,
+          f"hw: the twin projects {tops} TOPS/W, not 22.1 within 1 %")
+
+    # (c) the twin at full width, shape-only.
+    for arch in ("qwen3-0.6b", "deepseek-v3-671b", "kimi-k2-1t-a32b"):
+        cfg = get_config(arch)
+        t0 = time.monotonic()
+        p = mapper.map_model(cfg)
+        tok = hs.per_token_forward_cost(p, cfg)
+        print(f"hw: {arch} at full width: {p.tiles} tiles, {p.macros} "
+              f"macros, utilization {p.utilization:.6f}, "
+              f"{p.cells_used / 1e9:.3f}e9 cells, by rule {p.by_rule()}; "
+              f"forward {tok.energy_pj * 1e-6:.3f} uJ a token "
+              f"({tok.chunks} chunk reads); mapped in "
+              f"{1e3 * (time.monotonic() - t0):.1f} ms", flush=True)
+        check(p.tiles > 0 and 0 < p.utilization <= 1, f"hw: {arch} placement")
+
+
+def hold_energy(what: str, eng, done, cfg) -> dict:
+    """A fresh engine's energy books after one drain: per-request pJ
+    conserved (the requests' shares plus the idle remainder make the
+    total, so the prefix credit, booked outside both, stays out of it)
+    and the wear book's read chunks the executed tokens times the
+    per-token census. Returns the telemetry."""
+    from repro_torch.hw.schedule import per_token_forward_cost
+    from repro_torch.serve.request import percentile
+
+    hw = eng.hw_telemetry()
+    check(hw is not None, f"{what}: the engine keeps no energy books")
+    req = math.fsum(f.energy_pj for f in done)
+    total, idle = hw["total_pj"], hw["idle_pj"]
+    wear = eng._hw.wear
+    per_tok = per_token_forward_cost(wear.placement, cfg).chunks
+    tokens = hw["prefill_read_tokens"] + hw["decode_read_tokens"]
+    pj_tok = percentile([f.pj_per_token for f in done], 50)
+    print(f"{what}: energy books: total {total * 1e-6:.4f} uJ = requests "
+          f"{req * 1e-6:.4f} + idle {idle * 1e-6:.4f}; pJ/token p50 "
+          f"{pj_tok:.1f}; slot utilization {hw['slot_utilization']:.3f}; "
+          f"prefix credit {hw['prefix_saved_pj'] * 1e-6:.4f} uJ over "
+          f"{hw['prefix_hits']:g} hits; tile read chunks "
+          f"{wear.reads_sum:.6g} = {tokens:g} tokens x {per_tok}",
+          flush=True)
+    check(all(f.energy_pj > 0 for f in done), f"{what}: a request without "
+          "energy")
+    check(abs(req + idle - total) <= ENERGY_RTOL * total,
+          f"{what}: requests {req} + idle {idle} != total {total}")
+    check(abs(wear.reads_sum - tokens * per_tok)
+          <= ENERGY_RTOL * tokens * per_tok,
+          f"{what}: wear reads {wear.reads_sum} != {tokens} x {per_tok}")
+    return hw
+
+
+def cost_drain(torch, params, cfg, seed: int) -> None:
+    """The serve phase's requests, ``COST_NEW`` new tokens each, through an
+    eager engine with ``sched="cost"``: every request finishes, every
+    admission is the head of the scheduler's cost order at its step, and
+    the first one the host-side recomputation of that order (projected
+    pJ, then arrival)."""
+    from repro_torch.hw.schedule import AdmissionCost
+    from repro_torch.serve.engine import Engine
+
+    eng = Engine(params, cfg, slots=SLOTS, max_len=MAX_LEN, seed=seed,
+                 sched="cost", graphs=False)
+    reqs = _requests(cfg, seed)
+    for r in reqs:
+        r.max_new_tokens = COST_NEW
+    picks, heads = [], []
+    pick = eng.sched.pick
+
+    def logged(queue, n_free, tracker, try_reserve=None):
+        order = [queue[i].uid for i in eng.sched._order(queue)]
+        got = pick(queue, n_free, tracker, try_reserve)
+        picks.append([r.uid for r, _ in got])
+        heads.append(order[:len(got)])
+        return got
+
+    eng.sched.pick = logged
+    cost = AdmissionCost.for_model(params, cfg)
+    want = sorted(range(len(reqs)), key=lambda u: (cost.request_score(
+        len(reqs[u].prompt), COST_NEW), u))[:SLOTS]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.monotonic()
+    done = eng.run_until_drained()
+    print(f"serve: cost-policy drain ({cost.token_pj:.1f} pJ a token) in "
+          f"{time.monotonic() - t0:.2f}s: admissions {[p for p in picks if p]}"
+          f", first by host-side cost {want}", flush=True)
+    check(sorted(f.uid for f in done) == list(range(len(reqs)))
+          and all(len(f.tokens) == COST_NEW for f in done),
+          "serve: the cost-policy drain did not finish every request")
+    check(picks == heads, f"serve: cost admissions {picks} are not the "
+          f"heads of the cost order {heads}")
+    check(picks[0] == want, f"serve: first cost admission {picks[0]}, "
+          f"host-side order {want}")
+
+
 def _requests(cfg, seed: int):
     import numpy as np
 
@@ -1297,6 +1521,7 @@ def _drain(torch, params, cfg, seed: int, eng=None, **engine_kw):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     cpu = time.process_time() - c0   # this process's CPU seconds, all threads
+    eng.last_done = done             # for the energy gates
     return eng, {f.uid: [int(t) for t in f.tokens] for f in done}, wall, cpu
 
 
@@ -1432,6 +1657,7 @@ def phase_serve(torch, cfg, seed: int, params) -> dict:
     check(k1 > 0 and k3 > 0, f"kernel launches K1={k1} K3={k3}")
     check(eng.host_transfers == eng.steps,
           f"host_transfers {eng.host_transfers} != steps {eng.steps}")
+    hold_energy("serve", eng, eng.last_done, cfg)
     again, steps0, g_snap = [], eng.steps, snap(eng)
     hold_warm("serve", eng, lambda: again.append(
         _drain(torch, params, cfg, seed, eng=eng)))
@@ -1467,6 +1693,7 @@ def phase_serve(torch, cfg, seed: int, params) -> dict:
     check(ref_streams == streams, "kernel and plain drains differ")
     check(km.timefloats_matmul_quantized.launches == 0
           and ks.sample.launches == 0, "reference drain launched a kernel")
+    cost_drain(torch, params, cfg, seed)
     return {"K1": k1, "K3": k3}
 
 
@@ -1507,6 +1734,7 @@ def _paged_drain(torch, params, cfg, seed: int, paged: bool = True,
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     cpu = time.process_time() - c0
+    eng.last_done = done             # for the energy gates
     return eng, {f.uid: [int(t) for t in f.tokens] for f in done}, wall, cpu
 
 
@@ -1737,6 +1965,9 @@ def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
     check(eng.pool.conserved(), "paged: pool not conserved")
     check(not bool(eng.state.cache.layers[0].pt.any()),
           "paged: page tables not all-trash after the drain")
+    hw = hold_energy("paged", eng, eng.last_done, cfg)
+    check(hw["prefix_hits"] > 0 and hw["prefix_saved_pj"] > 0,
+          "paged: no prefix credit booked")
     reset()
     with LogitTap() as tap_f:   # the kernel drain's logits, on its twin
         e_eng, e_streams, e_wall, e_cpu = _paged_drain(
@@ -2234,10 +2465,12 @@ def phase_spec(torch, cfg, seed: int, params) -> dict:
     return out
 
 def train_drain(torch, step_fn, state, pipe, steps: int,
-                ckpt=None, ckpt_every: int = 10**9):
+                ckpt=None, ckpt_every: int = 10**9, hw_monitor=None):
     """``run_loop`` from ``state`` to step ``steps``; returns the final
     state and a row per step: loss, grad norm, wall and host CPU seconds,
-    K1 and K2 launches (a replay adds what its capture recorded)."""
+    K1 and K2 launches (a replay adds what its capture recorded), and with
+    ``hw_monitor`` the twin's step energy (uJ) and cumulative cell
+    writes."""
     from repro_torch.kernels import timefloats_matmul as km
     from repro_torch.train.trainer import LoopConfig, run_loop
 
@@ -2253,12 +2486,14 @@ def train_drain(torch, step_fn, state, pipe, steps: int,
     prev = {"k1": 0, "k2": 0, "cpu": time.process_time()}
     final, _ = run_loop(state, step_fn, pipe.batch_at, LoopConfig(
         total_steps=steps, log_every=1, ckpt_every=ckpt_every,
-        ckpt_dir=ckpt), on_metrics=on_metrics)
+        ckpt_dir=ckpt), on_metrics=on_metrics, hw_monitor=hw_monitor)
     rows = []
     for m in seen:
         rows.append({"loss": m["loss"], "grad_norm": m["grad_norm"],
                      "wall_s": m["step_s"], "cpu_s": m["cpu"] - prev["cpu"],
-                     "K1": m["k1"] - prev["k1"], "K2": m["k2"] - prev["k2"]})
+                     "K1": m["k1"] - prev["k1"], "K2": m["k2"] - prev["k2"],
+                     "hw_uj": m.get("hw_step_energy_uj"),
+                     "hw_writes": m.get("hw_cum_cell_writes")})
         prev = m
     return final, rows
 
@@ -2398,6 +2633,18 @@ def phase_train(torch, cfg, seed: int) -> dict:
           flush=True)
     step0_gates(torch, cfg, state0.params, pipe.batch_at(0), "train")
     k1_step, k2_step = train_launches(cfg)
+    from repro_torch.hw.schedule import HwMonitor
+
+    t0 = time.monotonic()
+    monitors = [HwMonitor.for_training(state0.params, pipe.batch_at(0), cfg)
+                for _ in range(2)]   # the graph drain's and its twin's
+    s = monitors[0].step_schedule
+    print(f"train: hw twin in {time.monotonic() - t0:.2f}s: "
+          f"{monitors[0].placement.tiles} tiles, {s.read.chunks} chunk "
+          f"reads, {s.energy_pj * 1e-6:.3f} uJ/step (reads "
+          f"{s.read.energy_pj * 1e-6:.3f}, writes "
+          f"{s.write_energy_pj * 1e-6:.3f}), {s.cells_written} cell "
+          f"writes/step", flush=True)
 
     # The main path: the graph drain (3 steps, checkpoints at 2 and 3).
     with tempfile.TemporaryDirectory() as ckpt:
@@ -2406,7 +2653,8 @@ def phase_train(torch, cfg, seed: int) -> dict:
         t0 = time.monotonic()
         step_g = tsl.make_train_step(cfg, tcfg)
         final, rows_g = train_drain(torch, step_g, state0, pipe, TRAIN_STEPS,
-                                    ckpt=ckpt, ckpt_every=2)
+                                    ckpt=ckpt, ckpt_every=2,
+                                    hw_monitor=monitors[0])
         wall = time.monotonic() - t0
         peak_g = torch.cuda.max_memory_allocated()
         launches = {"K1": sum(r["K1"] for r in rows_g),
@@ -2456,8 +2704,21 @@ def phase_train(torch, cfg, seed: int) -> dict:
     # Its eager twin, from the same initial state.
     peak_reset(torch)
     step_e = tsl.make_train_step(cfg, tcfg, graphs=False)
-    final_e, rows_e = train_drain(torch, step_e, state0, pipe, TRAIN_STEPS)
+    final_e, rows_e = train_drain(torch, step_e, state0, pipe, TRAIN_STEPS,
+                                  hw_monitor=monitors[1])
     print_rows("train (eager)", rows_e)
+    books = [m.summary() for m in monitors]
+    w = monitors[0].wear
+    print(f"train: hw books, graphs {[r['hw_uj'] for r in rows_g]} uJ a "
+          f"step, eager {[r['hw_uj'] for r in rows_e]}; cumulative cell "
+          f"writes {[r['hw_writes'] for r in rows_g]}; summary {books[0]}",
+          flush=True)
+    check(books[0] == books[1] and [r["hw_uj"] for r in rows_g] == [
+        r["hw_uj"] for r in rows_e], "train: graph replays book other "
+          "energy than eager steps")
+    check(w.writes_sum * monitors[0].placement.cells_written_per_update
+          == books[0]["total_cell_writes"] * w.n_tiles,
+          "train: the per-tile write books are not conserved")
     arm_note("train (eager)", torch, step_e, rows_e,
              torch.cuda.max_memory_allocated())
     hold_train("train", rows_g, rows_e, k1_step, k2_step)
@@ -3678,6 +3939,21 @@ def main(argv=None) -> int:
     print(f"build: K1, K2, K3, K4, K5 and K6 built from "
           f"src/repro_torch/csrc in {secs:.1f}s", flush=True)
 
+    # Host seconds of the twin's census traces (meta tensors), per phase.
+    from repro_torch.hw import schedule as hw_schedule
+
+    census_s = [0.0]
+    capture = hw_schedule.capture_census
+
+    def timed_capture(*a, **kw):
+        t0 = time.monotonic()
+        try:
+            return capture(*a, **kw)
+        finally:
+            census_s[0] += time.monotonic() - t0
+
+    hw_schedule.capture_census = timed_capture
+
     cfg = get_config("qwen3-0.6b", tf=TFConfig(mode="pallas"))
     cfg_mla = get_config("deepseek-v3-671b", n_layers=MLA_LAYERS,
                          tf=TFConfig(mode="pallas"))
@@ -3688,10 +3964,11 @@ def main(argv=None) -> int:
     recs, launches = {}, {}
 
     def timed(name, fn, *a):
-        t0 = time.monotonic()
+        t0, c0 = time.monotonic(), census_s[0]
         out = fn(*a)
         release(torch)
-        print(f"phase {name}: {time.monotonic() - t0:.1f}s", flush=True)
+        print(f"phase {name}: {time.monotonic() - t0:.1f}s (census traces "
+              f"{census_s[0] - c0:.2f}s)", flush=True)
         return out
 
     try:
@@ -3711,6 +3988,8 @@ def main(argv=None) -> int:
             recs["K4"] = timed("k4", phase_k4, torch, cfg, args.seed)
         if "k5" in phases:
             recs["K5"] = timed("k5", phase_k5, torch, cfg_mla, args.seed)
+        if "hw" in phases:
+            timed("hw", phase_hw, torch, args.seed)
         serving = ("serve", phase_serve), ("paged", phase_paged_serve), (
             "chunked", phase_chunked), ("spec", phase_spec)
         if phases & {name for name, _ in serving}:

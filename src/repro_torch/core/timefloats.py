@@ -22,12 +22,20 @@ A projection's forward runs as dispatcher ops (``repro_torch::tf_project``
 and its kin), so that a selective checkpoint policy can keep its output
 and quantized planes (``models/model.py``'s ``remat="dots"``).
 
-Not ported yet: ``exact`` mode (the five ``step*`` functions,
-``matmul_exact``, ``NoiseParams``) and the op census (``op_census``,
-``census_scale``, ``backward_census``), which serves the hw twin.
+``mode="exact"`` is the paper's pipeline: the five steps literally
+(:func:`scalar_product_steps`) and :func:`matmul_exact`, each 64-chunk of
+each (row, column) pair aligned to its own joint max exponent, in plain
+PyTorch as the reference computes it outside any kernel. Every step is an
+integer or power-of-two operation and the f32 chunk sum keeps its order,
+so it is bitwise the reference's on any device. Its noise branch (process
+variability) waits for the variability slice.
+
+The op census (:func:`op_census`, DESIGN.md §6) records every forward
+crossbar read a program makes; ``hw/schedule.py`` prices it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import NamedTuple, Optional
@@ -38,6 +46,15 @@ from repro_torch.core import float8
 from repro_torch.core.float8 import E4M4, FloatFormat
 
 Tensor = torch.Tensor
+
+
+class NoiseParams(NamedTuple):
+    """Process-variability model of Sec. III-D: C -> C * (1 + N(0, sigma)),
+    applied separately to the exponent path (time-pulse representation of
+    e_x + e_w) and to the mantissa path (crossbar product-sum)."""
+
+    sigma_exp: float = 0.0
+    sigma_mant: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,10 +111,14 @@ def _adc(p: Tensor, cfg: TFConfig) -> Tensor:
     if cfg.adc_bits is None:
         return p
     pf = p.to(torch.float32)
-    fs, levels, _ = adc_constants(cfg, p.device)
+    fs, levels, step = adc_constants(cfg, p.device)
     if cfg.adc_mode != "fixed":  # auto-ranged per (M, N) product
-        fs = torch.clamp_min(pf.abs().amax(dim=(-2, -1), keepdim=True), 1.0)
-    return torch.round(pf / fs * levels) * (fs / levels)
+        dims = (-2, -1) if pf.ndim >= 2 else tuple(range(pf.ndim))
+        fs = torch.clamp_min(pf.abs().amax(dim=dims, keepdim=True), 1.0)
+        # XLA divides the run-time full scale by the constant level count
+        # through the constant's f32 reciprocal.
+        step = fs * torch.reciprocal(levels)
+    return torch.round(pf / fs * levels) * step
 
 
 def _pad_k(a: Tensor, block: int, axis: int) -> Tensor:
@@ -107,6 +128,160 @@ def _pad_k(a: Tensor, block: int, axis: int) -> Tensor:
     widths = [0, 0] * a.ndim
     widths[2 * (a.ndim - 1 - axis) + 1] = pad  # F.pad lists the last dim first
     return torch.nn.functional.pad(a, widths)
+
+
+# ---------------------------------------------------------------------------
+# The five steps, literally, for a single (x, w) pair (Fig. 2 of the paper).
+# ---------------------------------------------------------------------------
+
+_NO_EXP = -(2**30)   # the summed exponent of an invalid (zero) term
+
+
+def step1_exponent_add(fx: float8.F8Fields, fw: float8.F8Fields) -> Tensor:
+    """Element-wise e_x + e_w on stored codes (the RC-discharge adder)."""
+    return fx.exp.to(torch.int32) + fw.exp.to(torch.int32)
+
+
+def step2_max_detect(s: Tensor, valid: Tensor) -> Tensor:
+    """Largest summed exponent (the D-FF/MUX tournament tree)."""
+    return torch.where(valid, s, _NO_EXP).amax()
+
+
+def step3_mantissa_scale(fx: float8.F8Fields, s: Tensor, e_max: Tensor,
+                         fmt: FloatFormat) -> Tensor:
+    """Right-shift input significands by (E_max - s_i); shifts past the
+    significand width zero the term (the sparsity the paper notes)."""
+    shift = torch.clamp(e_max - s, 0, 31)
+    mhat = fx.significand(fmt) * fx.sign.to(torch.int32)
+    mag = torch.abs(mhat) >> shift
+    mag = torch.where(shift > fmt.man_bits, 0, mag)
+    return torch.sign(mhat) * mag
+
+
+def step4_mac(mx_scaled: Tensor, fw: float8.F8Fields,
+              fmt: FloatFormat) -> Tensor:
+    """Fixed-point scalar product against weight significands (crossbar),
+    an int32 sum."""
+    mw = fw.significand(fmt) * fw.sign.to(torch.int32)
+    return torch.sum(mx_scaled * mw, dtype=torch.int32)
+
+
+def step5_renormalize(p: Tensor, e_max: Tensor, cfg: TFConfig) -> Tensor:
+    """Digitize and rescale the product-sum back to floating point."""
+    return p.to(torch.float32) * float8.exp2i(e_max - cfg.out_scale_bias)
+
+
+def _chunk_fields(f: float8.F8Fields, sl) -> float8.F8Fields:
+    return float8.F8Fields(*(a[sl] for a in f))
+
+
+def scalar_product_steps(x: Tensor, w: Tensor,
+                         cfg: TFConfig = DEFAULT) -> Tensor:
+    """Full 5-step scalar product of two 1-D vectors (any length; chunked):
+    the chunks' f32 values summed in chunk order from zero."""
+    (k,) = x.shape
+    if w.shape != (k,):
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)}")
+    x = _pad_k(x, cfg.block, 0)
+    w = _pad_k(w, cfg.block, 0)
+    fx = float8.decompose(x, cfg.fmt)
+    fw = float8.decompose(w, cfg.fmt)
+    acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(x.shape[0] // cfg.block):
+        sl = slice(c * cfg.block, (c + 1) * cfg.block)
+        cx, cw = _chunk_fields(fx, sl), _chunk_fields(fw, sl)
+        valid = cx.nonzero & cw.nonzero
+        s = step1_exponent_add(cx, cw)
+        e_max = step2_max_detect(s, valid)
+        mx = step3_mantissa_scale(cx, s, e_max, cfg.fmt)
+        mx = torch.where(valid, mx, 0)
+        p = _adc(step4_mac(mx, cw, cfg.fmt), cfg)
+        acc = acc + torch.where(valid.any(), step5_renormalize(p, e_max, cfg),
+                                0.0)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Exact-mode matmul: per-(row, column, chunk) joint max alignment, one
+# chunk at a time in order (the reference's scan over K chunks).
+# ---------------------------------------------------------------------------
+
+NOISE_NOT_PORTED = (
+    "matmul_exact's process-variability noise replays jax.random and comes "
+    "with the variability slice (ROADMAP Queue 1 item 7); only noise-free "
+    "NoiseParams are accepted")
+
+
+def matmul_exact(x: Tensor, w: Tensor, cfg: TFConfig = DEFAULT, *,
+                 noise: Optional[NoiseParams] = None, key=None) -> Tensor:
+    """(M, K) @ (K, N) with per-(row, column, chunk) joint max alignment:
+    the faithful oracle, not a fast path. Each chunk materializes an
+    (M, block, N) exponent-sum tensor, takes its int32 product-sum over the
+    block, and adds ``p * 2^(e_max - bias)`` to an f32 accumulator, chunk by
+    chunk. ``noise`` and ``key`` are the reference's variability inputs:
+    any nonzero noise raises (see ``NOISE_NOT_PORTED``)."""
+    if noise is not None and (noise.sigma_exp > 0 or noise.sigma_mant > 0):
+        raise NotImplementedError(NOISE_NOT_PORTED)
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"matmul_exact: x {tuple(x.shape)} @ w "
+                         f"{tuple(w.shape)}")
+    m_dim, n_dim = x.shape[0], w.shape[1]
+    xp = _pad_k(x, cfg.block, 1)
+    wp = _pad_k(w, cfg.block, 0)
+    n_chunks = xp.shape[1] // cfg.block
+    fx = float8.decompose(xp, cfg.fmt)
+    fw = float8.decompose(wp, cfg.fmt)
+    # (C, M, B) and (C, B, N) layouts, one chunk at a time.
+    cx = float8.F8Fields(*(a.reshape(m_dim, n_chunks, cfg.block)
+                           .transpose(0, 1) for a in fx))
+    cw = float8.F8Fields(*(a.reshape(n_chunks, cfg.block, n_dim)
+                           for a in fw))
+    mw_all = cw.significand(cfg.fmt) * cw.sign.to(torch.int32)
+    mx_all = cx.significand(cfg.fmt)
+    sx_all = cx.sign.to(torch.int32)
+    acc = torch.zeros((m_dim, n_dim), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        s = (cx.exp[c].to(torch.int32)[:, :, None]
+             + cw.exp[c].to(torch.int32)[None, :, :])       # (M, B, N)
+        valid = cx.nonzero[c][:, :, None] & cw.nonzero[c][None, :, :]
+        s_eff = torch.where(valid, s, _NO_EXP)
+        e_max = s_eff.amax(dim=1)                            # (M, N)
+        shift = torch.clamp(e_max[:, None, :] - s_eff, 0, 31)
+        mx = mx_all[c][:, :, None] >> shift
+        mx = torch.where(shift > cfg.fmt.man_bits, 0, mx)
+        mx = torch.where(valid, mx, 0)
+        p = torch.sum(mx * sx_all[c][:, :, None] * mw_all[c][None, :, :],
+                      dim=1, dtype=torch.int32)              # (M, N)
+        p = _adc(p, cfg)
+        contrib = torch.where(
+            valid.any(dim=1),
+            p.to(torch.float32) * float8.exp2i(e_max - cfg.out_scale_bias),
+            0.0)
+        acc = acc + contrib
+    return acc
+
+
+def expected_sparsity(x: Tensor, w: Tensor,
+                      cfg: TFConfig = DEFAULT) -> Tensor:
+    """Fraction of chunk terms zeroed by shift-truncation (the paper's
+    'enhancing sparsity'); exact-mode bookkeeping, an f32 0-dim tensor."""
+    xp = _pad_k(x, cfg.block, 1)
+    wp = _pad_k(w, cfg.block, 0)
+    fx = float8.decompose(xp, cfg.fmt)
+    fw = float8.decompose(wp, cfg.fmt)
+    m_dim, k_pad = xp.shape
+    n_dim = wp.shape[1]
+    c = k_pad // cfg.block
+    ex = fx.exp.to(torch.int32).reshape(m_dim, c, cfg.block)
+    ew = fw.exp.to(torch.int32).reshape(c, cfg.block, n_dim)
+    s = ex[:, :, :, None] + ew[None, :, :, :]               # (M, C, B, N)
+    valid = (fx.nonzero.reshape(m_dim, c, cfg.block)[:, :, :, None]
+             & fw.nonzero.reshape(c, cfg.block, n_dim)[None])
+    e_max = torch.where(valid, s, _NO_EXP).amax(dim=2, keepdim=True)
+    dropped = valid & ((e_max - s) > cfg.fmt.man_bits)
+    n_valid = valid.sum(dtype=torch.int32)
+    return (dropped.sum(dtype=torch.int32).to(torch.float32)
+            / torch.clamp_min(n_valid, 1).to(torch.float32))
 
 
 class QuantizedOperand(NamedTuple):
@@ -219,8 +394,7 @@ def matmul(x: Tensor, w: Tensor, cfg: TFConfig = DEFAULT) -> Tensor:
 
         return ops.timefloats_matmul(x, w, cfg)
     if cfg.mode == "exact":
-        raise NotImplementedError(
-            "TimeFloats exact mode is not ported yet (training slice)")
+        return matmul_exact(x, w, cfg)
     raise ValueError(f"unknown TimeFloats mode: {cfg.mode!r}")
 
 
@@ -254,6 +428,7 @@ def _lift(scale: Tensor, ndim: int) -> Tensor:
 
 
 def _scaled_matmul(x: Tensor, w: Tensor, cfg: TFConfig) -> Tensor:
+    _record_op("fwd", x.shape[0], x.shape[1], w.shape[1])
     xs, sx = _pow2_prescale(x, cfg)
     ws, sw = _pow2_prescale(w, cfg)
     return matmul(xs, ws, cfg) / (sx * sw)
@@ -294,11 +469,27 @@ class PreparedOperand(NamedTuple):
 
     scale — () f32 per-tensor pow2 amax prescale; the planes encode
             ``operand * scale``.
-    q     — block-aligned int8 planes and per-chunk scales.
+    q     — block-aligned int8 planes and per-chunk scales (None in exact
+            mode).
+    fq    — exact mode: the prescaled operand on the FP8 grid (f32), which
+            ``matmul_exact`` re-decomposes; None in the other modes.
     """
 
     scale: Tensor
-    q: QuantizedOperand
+    q: Optional[QuantizedOperand]
+    fq: Optional[Tensor] = None
+
+
+def _parts(p: PreparedOperand) -> tuple:
+    """The tensors of an entry, as it crosses an op or autograd boundary:
+    (scale, planes, chunk scales), or (scale, fq) in exact mode."""
+    return (p.scale, p.fq) if p.q is None else (p.scale, p.q.q, p.q.scale)
+
+
+def _from_parts(t) -> PreparedOperand:
+    if len(t) == 2:
+        return PreparedOperand(t[0], None, t[1])
+    return PreparedOperand(t[0], QuantizedOperand(t[1], t[2]))
 
 
 # Calls of prepare_input / prepare_weight. The reference counts once per
@@ -318,9 +509,7 @@ def reset_quant_trace_counts() -> None:
 
 
 def _check_mode(cfg: TFConfig) -> None:
-    if cfg.mode == "exact":
-        raise NotImplementedError("TimeFloats exact mode is not ported yet")
-    if cfg.mode not in ("separable", "pallas"):
+    if cfg.mode not in ("exact", "separable", "pallas"):
         raise ValueError(f"unknown TimeFloats mode: {cfg.mode!r}")
 
 
@@ -329,7 +518,7 @@ def prepare_input(x2: Tensor, cfg: TFConfig = DEFAULT) -> PreparedOperand:
     _check_mode(cfg)
     _QUANT_COUNTS["prepare_input"] += 1
     xs, s = _pow2_prescale(x2, cfg)
-    return PreparedOperand(scale=s, q=quantize_input(xs, cfg))
+    return _quantized_entry(xs, s, cfg, quantize_input)
 
 
 # Elements of weight quantized at once: the quantizer's temporaries take
@@ -337,6 +526,16 @@ def prepare_input(x2: Tensor, cfg: TFConfig = DEFAULT) -> PreparedOperand:
 # deepseek-v3's head, 4 of its 7168 x 2048 experts) stays near 2.7 GB where
 # the whole head would take ~40 GB.
 QUANT_SLAB_ELEMS = 1 << 26
+
+
+def _quantized_entry(a: Tensor, s: Tensor, cfg: TFConfig,
+                     quantizer) -> PreparedOperand:
+    """The entry of a prescaled operand ``a``: its planes, or in exact mode
+    its values on the FP8 grid."""
+    if cfg.mode == "exact":
+        return PreparedOperand(scale=s, q=None,
+                               fq=float8.quantize(a, cfg.fmt))
+    return PreparedOperand(scale=s, q=quantizer(a, cfg))
 
 
 def _prepare_weight_slabs(w: Tensor, cfg: TFConfig, batch: int
@@ -348,9 +547,9 @@ def _prepare_weight_slabs(w: Tensor, cfg: TFConfig, batch: int
     s = _prescale_of(w, cfg, batch)
     n_dim = w.shape[-1]
     per = max(1, QUANT_SLAB_ELEMS // max(w.numel() // max(n_dim, 1), 1))
-    if per >= n_dim:
-        return PreparedOperand(scale=s, q=quantize_weight(
-            w.to(torch.float32) * _lift(s, w.ndim), cfg))
+    if per >= n_dim or cfg.mode == "exact":
+        return _quantized_entry(w.to(torch.float32) * _lift(s, w.ndim), s,
+                                cfg, quantize_weight)
     q = qs = None
     for n0 in range(0, n_dim, per):
         part = quantize_weight(w[..., n0:n0 + per].to(torch.float32)
@@ -391,7 +590,7 @@ def prepare_input_experts(x: Tensor, cfg: TFConfig = DEFAULT
     _check_mode(cfg)
     _QUANT_COUNTS["prepare_input"] += 1
     xs, s = _pow2_prescale(x, cfg, batch=1)
-    return PreparedOperand(scale=s, q=quantize_input(xs, cfg))
+    return _quantized_entry(xs, s, cfg, quantize_input)
 
 
 def prepare_weight_experts(w: Tensor, cfg: TFConfig = DEFAULT
@@ -416,15 +615,11 @@ def prepare_weight_stack(w: Tensor, cfg: TFConfig = DEFAULT
 def _cat_prepared(parts: list) -> PreparedOperand:
     if len(parts) == 1:
         return parts[0]
-    return PreparedOperand(
-        scale=torch.cat([p.scale for p in parts]),
-        q=QuantizedOperand(torch.cat([p.q.q for p in parts]),
-                           torch.cat([p.q.scale for p in parts])))
+    return _from_parts([torch.cat(ts) for ts in zip(*map(_parts, parts))])
 
 
-def _slice_prepared(p: PreparedOperand, g: slice) -> PreparedOperand:
-    return PreparedOperand(p.scale[g], QuantizedOperand(p.q.q[g],
-                                                        p.q.scale[g]))
+def _slice_prepared(p: PreparedOperand, g) -> PreparedOperand:
+    return _from_parts([t[g] for t in _parts(p)])
 
 
 def _matmul_prepared_experts(px: PreparedOperand, pw: PreparedOperand,
@@ -432,6 +627,8 @@ def _matmul_prepared_experts(px: PreparedOperand, pw: PreparedOperand,
                              cfg: TFConfig) -> Tensor:
     """(E, M, N) products of stacked cache entries; expert e's is
     bit-identical to ``_matmul_prepared`` on its slices."""
+    with census_scale(px.q.q.shape[0]):   # the group's experts
+        _record_op("fwd", m_dim, k_dim, n_dim)
     if cfg.mode == "pallas":
         from repro_torch.kernels import ops
 
@@ -504,6 +701,15 @@ def expert_linear(x: Tensor, w: Tensor, pw: PreparedOperand | None = None,
     if w.ndim != 3 or x.ndim != 3 or x.shape[0] != w.shape[0]:
         raise ValueError(f"expert_linear: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}: need (E, M, K) and (E, K, N)")
+    if x.is_meta:
+        with census_scale(w.shape[0]):
+            return _meta_product(x.shape[1], x.shape[2], w.shape[2], x,
+                                 lead=(w.shape[0],))
+    if cfg.mode == "exact":   # expert by expert: the oracle, not a fast path
+        return torch.stack([
+            linear(x[e], w[e], cfg) if pw is None
+            else linear_cached(x[e], w[e], _slice_prepared(pw, e), cfg)
+            for e in range(w.shape[0])])
     parts = (None, None, None) if pw is None else (pw.scale, pw.q.q,
                                                    pw.q.scale)
     return _ExpertLinear.apply(x, w, *parts, cfg)
@@ -513,6 +719,9 @@ def _matmul_prepared(px: PreparedOperand, pw: PreparedOperand, m_dim: int,
                      k_dim: int, n_dim: int, cfg: TFConfig) -> Tensor:
     """Forward product from cache entries; bit-identical to
     ``matmul(xs, ws, cfg)`` on the prescaled operands."""
+    _record_op("fwd", m_dim, k_dim, n_dim)
+    if cfg.mode == "exact":
+        return matmul_exact(px.fq, pw.fq, cfg)
     if cfg.mode == "pallas":
         from repro_torch.kernels import ops
 
@@ -527,8 +736,13 @@ def _bwd_prepared(cfg: TFConfig, px: PreparedOperand, pw: PreparedOperand,
     """dx = g @ W^T and dW = x^T @ g from the stored operands. dx reads the
     stored weight planes transposed (K2 in pallas mode); dW, the in-situ
     update's outer product, stays a dequantize + matmul in every mode, as
-    in the reference."""
+    in the reference. Exact mode re-MACs the stored FP8 values with joint
+    alignment (the oracle)."""
     gs, sg = _pow2_prescale(g2, cfg)
+    if cfg.mode == "exact":
+        dx = matmul_exact(gs, pw.fq.T, cfg) / (sg * pw.scale)
+        dw = matmul_exact(px.fq.T, gs, cfg) / (px.scale * sg)
+        return dx, dw
     if cfg.mode == "pallas" and cfg.adc_bits is None:
         from repro_torch.kernels import ops
 
@@ -589,27 +803,39 @@ PROJECTION_OPS = (torch.ops.repro_torch.tf_prepare_weight.default,
                   torch.ops.repro_torch.tf_project.default)
 
 
-def _prepared(t) -> PreparedOperand:
-    return PreparedOperand(t[0], QuantizedOperand(t[1], t[2]))
+def _prepare_weight_entry(w: Tensor, cfg: TFConfig) -> PreparedOperand:
+    """A projection's weight entry: through its op, or directly in exact
+    mode (whose entry is no plane set)."""
+    if cfg.mode == "exact":
+        return prepare_weight(w, cfg)
+    return _from_parts(_prepare_weight_op(w, *_cfg_args(cfg)))
 
 
 def _forward_prepared(x2: Tensor, pw: PreparedOperand, n_dim: int,
                       cfg: TFConfig) -> tuple[Tensor, PreparedOperand]:
+    if cfg.mode == "exact":
+        px = prepare_input(x2, cfg)
+        y = _matmul_prepared(px, pw, x2.shape[0], x2.shape[1], n_dim, cfg)
+        return y / (px.scale * pw.scale), px
     y, *px = _project_op(x2, pw.scale, pw.q.q, pw.q.scale, n_dim,
                          *_cfg_args(cfg))
-    return y, _prepared(px)
+    return y, _from_parts(px)
 
 
 # The residuals go through ctx.save_for_backward, so activation
 # checkpointing (models/model.py, remat="full") can drop and recompute them.
 def _save(ctx, *ops: PreparedOperand) -> None:
-    ctx.save_for_backward(*(t for op in ops for t in (op.scale, op.q.q,
-                                                      op.q.scale)))
+    parts = [_parts(op) for op in ops]
+    ctx.n_parts = [len(p) for p in parts]
+    ctx.save_for_backward(*(t for p in parts for t in p))
 
 
 def _load(ctx) -> list:
-    t = ctx.saved_tensors
-    return [_prepared(t[i:i + 3]) for i in range(0, len(t), 3)]
+    t, out, at = ctx.saved_tensors, [], 0
+    for n in ctx.n_parts:
+        out.append(_from_parts(t[at:at + n]))
+        at += n
+    return out
 
 
 class _Linear(torch.autograd.Function):
@@ -621,7 +847,7 @@ class _Linear(torch.autograd.Function):
     def forward(ctx, x2, w, cfg):
         ctx.cfg, ctx.k_dim, ctx.dtypes = cfg, x2.shape[1], (x2.dtype, w.dtype)
         if cfg.cache:
-            pw = _prepared(_prepare_weight_op(w, *_cfg_args(cfg)))
+            pw = _prepare_weight_entry(w, cfg)
             y, px = _forward_prepared(x2, pw, w.shape[1], cfg)
             _save(ctx, px, pw)
         else:
@@ -641,21 +867,21 @@ class _Linear(torch.autograd.Function):
 
 
 class _LinearCached(torch.autograd.Function):
-    """``linear_cached``: the weight's cache entry ``pw`` is an input; it
-    takes no gradient, and ``w`` is only the gradient's attachment point."""
+    """``linear_cached``: the weight's cache entry ``pw`` is an input (its
+    tensors, :func:`_parts`); it takes no gradient, and ``w`` is only the
+    gradient's attachment point."""
 
     @staticmethod
-    def forward(ctx, x2, w, pw_scale, pw_q, pw_s, cfg):
+    def forward(ctx, x2, w, cfg, *pw_parts):
         ctx.cfg, ctx.k_dim, ctx.dtypes = cfg, x2.shape[1], (x2.dtype, w.dtype)
-        pw = PreparedOperand(pw_scale, QuantizedOperand(pw_q, pw_s))
-        y, px = _forward_prepared(x2, pw, w.shape[1], cfg)
-        _save(ctx, px, pw)
+        y, px = _forward_prepared(x2, _from_parts(pw_parts), w.shape[1], cfg)
+        _save(ctx, px, _from_parts(pw_parts))
         return y
 
     @staticmethod
     def backward(ctx, g):
         px, pw = _load(ctx)
-        return _grads(ctx, px, pw, g) + (None,) * 4
+        return _grads(ctx, px, pw, g) + (None,) * (1 + sum(ctx.n_parts[1:]))
 
 
 def _grads(ctx, px: PreparedOperand, pw: PreparedOperand, g: Tensor
@@ -676,7 +902,9 @@ def linear(x: Tensor, w: Tensor, cfg: TFConfig = DEFAULT) -> Tensor:
     in the backward. The quantizer passes gradients straight through. x may
     carry leading batch dims."""
     lead = x.shape[:-1]
-    y = _Linear.apply(x.reshape(-1, x.shape[-1]), w, cfg)
+    x2 = x.reshape(-1, x.shape[-1])
+    y = (_meta_product(*x2.shape, w.shape[1], x2) if x.is_meta
+         else _Linear.apply(x2, w, cfg))
     return y.reshape(*lead, w.shape[-1])
 
 
@@ -689,6 +917,108 @@ def linear_cached(x: Tensor, w: Tensor, pw: PreparedOperand,
     if w.ndim != 2:
         raise ValueError(f"w must be 2-D, got {tuple(w.shape)}")
     lead = x.shape[:-1]
-    y = _LinearCached.apply(x.reshape(-1, x.shape[-1]), w, pw.scale, pw.q.q,
-                            pw.q.scale, cfg)
+    x2 = x.reshape(-1, x.shape[-1])
+    y = (_meta_product(*x2.shape, w.shape[1], x2) if x.is_meta
+         else _LinearCached.apply(x2, w, cfg, *_parts(pw)))
     return y.reshape(*lead, w.shape[-1])
+
+
+def _meta_product(m_dim: int, k_dim: int, n_dim: int, like: Tensor,
+                  lead: tuple = ()) -> Tensor:
+    """A projection on meta tensors (the hw twin's census trace,
+    ``hw/schedule.capture_census``): record its forward read as the real
+    call would and return an f32 output of its shape, without tracing the
+    quantizer's ops, which only shapes would come of."""
+    _record_op("fwd", m_dim, k_dim, n_dim)
+    return like.new_empty(lead + (m_dim, n_dim), dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Op census (DESIGN.md §6). Each forward crossbar read records, at the call
+# that makes it, its static matmul shape, a crossbar-access tag and the
+# execution multiplier of the enclosing census_scale() contexts:
+#
+#   fwd     — forward read:            y  = x @ W          (ADC digitizes)
+#   bwd_dx  — transposed read:         dx = g @ W^T        (ADC-free, §3)
+#   bwd_dw  — outer-product read:      dW = x^T @ g        (ADC-free, §3)
+#
+# Shapes are the (M, K, N) of the equivalent crossbar matmul with K the
+# contraction dim: bwd_dx is (M, N_fwd, K_fwd) and bwd_dw (K_fwd, M_fwd,
+# N_fwd).
+#
+# Only the forward records (tag "fwd"); backward_census() synthesizes the
+# training tags, one transposed dx read and one outer dW read per
+# differentiated linear. The reference records once per trace with the
+# scan's trip count as multiplier; the port runs its layer, microbatch and
+# dispatch-chunk loops in Python, so a read records once per execution
+# (multiplier 1), and an expert group's product records once with the
+# group's expert count. Nothing records inside an autograd backward: the
+# recomputation of a checkpointed block (remat="full"/"dots") re-runs its
+# forward there, and counting it would count the block twice.
+# ---------------------------------------------------------------------------
+
+
+class OpRecord(NamedTuple):
+    """One crossbar matmul: tag, (M, K, N), static multiplier."""
+
+    tag: str
+    m: int
+    k: int
+    n: int
+    mult: int
+
+
+_OP_CENSUS: Optional[list] = None
+_CENSUS_SCALE: int = 1
+
+
+@contextlib.contextmanager
+def op_census():
+    """Collect OpRecords for every forward read made inside the context:
+
+        with op_census() as events:
+            loss_fn(params, batch, cfg)
+        cost = hw.schedule.census_cost(backward_census(events))
+
+    (``hw/schedule.capture_census`` does this on meta tensors, without
+    running a step.) Nested uses stack: each context sees only its own
+    records."""
+    global _OP_CENSUS
+    prev = _OP_CENSUS
+    events: list = []
+    _OP_CENSUS = events
+    try:
+        yield events
+    finally:
+        _OP_CENSUS = prev
+
+
+@contextlib.contextmanager
+def census_scale(n: int):
+    """Multiply the census weight of records made inside by ``n``."""
+    global _CENSUS_SCALE
+    prev = _CENSUS_SCALE
+    _CENSUS_SCALE = prev * int(n)
+    try:
+        yield
+    finally:
+        _CENSUS_SCALE = prev
+
+
+def _record_op(tag: str, m: int, k: int, n: int) -> None:
+    if _OP_CENSUS is not None and torch._C._current_graph_task_id() == -1:
+        _OP_CENSUS.append(OpRecord(tag, int(m), int(k), int(n),
+                                   _CENSUS_SCALE))
+
+
+def backward_census(events) -> list:
+    """Expand a forward census into the full training-step census: every
+    differentiated linear's forward read (M, K, N) is joined by its
+    transposed dx read (M, N, K) and outer dW read (K, M, N), which the
+    backward executes against the stored planes."""
+    out = list(events)
+    for ev in events:
+        if ev.tag == "fwd":
+            out.append(OpRecord("bwd_dx", ev.m, ev.n, ev.k, ev.mult))
+            out.append(OpRecord("bwd_dw", ev.k, ev.m, ev.n, ev.mult))
+    return out

@@ -3,6 +3,7 @@
 - ``lm_batch``: uniform random tokens (shape and throughput runs).
 - ``markov_batch``: an order-1 Markov chain over a fixed random transition
   table, so training losses can fall.
+- ``classification_data``: gaussian blobs for the paper-scale edge MLP.
 
 Every draw comes from a ``torch.Generator``: a generator seeded from
 (seed, step) determines a batch, which is what makes a restart replay the
@@ -62,3 +63,20 @@ def markov_batch(cfg: ModelConfig, b: int, s: int,
                                 generator=generator)[:, 0]
         seq.append(tok)
     return _split(torch.stack(seq, dim=1).to(torch.int32), b, s)
+
+
+def classification_data(generator: torch.Generator, n: int, in_dim: int,
+                        n_classes: int, margin: float = 1.0
+                        ) -> tuple[Tensor, Tensor]:
+    """Linearly-separable-ish gaussian blobs for the paper-scale MLP
+    (``configs/timefloats_mlp.py``): class centers ~ N(0, margin^2), each
+    point its class center plus N(0, 0.25) noise. Returns (x (n, in_dim)
+    f32, labels (n,) int32) on the generator's device."""
+    dev = generator.device
+    centers = torch.randn((n_classes, in_dim), generator=generator,
+                          device=dev) * margin
+    labels = torch.randint(0, n_classes, (n,), generator=generator,
+                           dtype=torch.int32, device=dev)
+    x = centers[labels.long()] + torch.randn((n, in_dim), generator=generator,
+                                             device=dev) * 0.5
+    return x, labels

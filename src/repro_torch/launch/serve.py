@@ -12,9 +12,13 @@ the reduced config on the CPU, where every kernel's plain version runs.
 lookup and verifies them in one call. The request stream from ``--seed``
 is the reference launcher's: prompts of 4 to min(64, max_len / 2) tokens
 (with ``--spec``, tiles of one 8-token motif), each after ``--prefix-len``
-shared tokens. The reference's ``--engine legacy``, ``--sched cost``,
-tracing, metrics, health and wear options wait for the slices that port
-them.
+shared tokens. ``--sched cost`` admits the cheapest projected crossbar
+energy first (the hw twin's ``AdmissionCost``); ``--wear-weight`` adds a
+wear surcharge read from a ``HwMonitor`` pre-aged by ``--wear-prior-steps``
+optimizer steps. At ``--quant timefloats`` the report ends with the twin's
+energy books: total and idle uJ, slot utilization, pJ per token (p50) and,
+paged, the prefix credit. The reference's ``--engine legacy``, tracing,
+metrics and health wait for the slices that port them.
 """
 import argparse
 import dataclasses
@@ -45,11 +49,21 @@ def main(argv=None):
     ap.add_argument("--chunk-tokens", type=int, default=0,
                     help="chunked prefill: pow2 chunk size (0 = whole-prompt"
                          " waves)")
+    ap.add_argument("--sched", default="fcfs", choices=["fcfs", "cost"],
+                    help="admission policy: arrival order or pJ-scored "
+                         "cost-aware (hw twin Table-I costs)")
     ap.add_argument("--spec", action="store_true",
                     help="speculative decoding: ngram draft + batched chain "
                          "verify (greedy only)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="speculative chain depth (draft tokens per step)")
+    ap.add_argument("--wear-weight", type=float, default=0.0,
+                    help="wear-aware admission: surcharge request scores by "
+                         "weight x endurance_frac (requires --sched cost, "
+                         "timefloats quant)")
+    ap.add_argument("--wear-prior-steps", type=int, default=0,
+                    help="pre-age the wear monitor by this many optimizer "
+                         "steps before serving (a fleet mid-life chip)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--graphs", action=argparse.BooleanOptionalAction,
                     default=None,
@@ -59,6 +73,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.spec and args.temperature > 0:
         print("--spec requires greedy decoding (temperature 0)",
+              file=sys.stderr)
+        return 2
+    if args.wear_weight and (args.quant != "timefloats"
+                             or args.sched != "cost"):
+        print("--wear-weight needs the pJ-scored scheduler on the "
+              "timefloats twin (--sched cost --quant timefloats)",
               file=sys.stderr)
         return 2
 
@@ -87,11 +107,24 @@ def main(argv=None):
           f"spec={args.spec}", flush=True)
 
     params = M.init(cfg, args.seed, device=device)
+    wear_monitor = wear_endurance = None
+    if args.wear_weight:
+        # A live endurance source: the per-tile wear books, optionally
+        # pre-aged; census-free (an empty census costs zeros).
+        from repro_torch.hw.mapper import map_params
+        from repro_torch.hw.schedule import HwMonitor
+
+        wear_monitor = HwMonitor(map_params(params, cfg), events=[])
+        if args.wear_prior_steps:
+            wear_monitor.resume_at(args.wear_prior_steps)
+        wear_endurance = lambda: wear_monitor.summary()["endurance_frac"]
     eng = Engine(params, cfg, slots=args.slots, max_len=args.max_len,
                  seed=args.seed, paged=args.paged, page_size=args.page_size,
                  chunk_tokens=args.chunk_tokens or None,
                  spec=SpecConfig(k=args.spec_k) if args.spec else None,
-                 device=device, graphs=args.graphs)
+                 device=device, graphs=args.graphs, sched=args.sched,
+                 wear_weight=args.wear_weight,
+                 wear_endurance=wear_endurance)
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab_size,
                           size=args.prefix_len).astype(np.int32)
@@ -133,6 +166,27 @@ def main(argv=None):
              if graphs.capture else "")
           + " ".join(sorted(graphs.counts)))
     st = eng.stats()
+    hw = eng.hw_telemetry()
+    if hw is not None:  # the twin: projected crossbar energy, utilization
+        per_tok = [f.pj_per_token for f in done]
+        p50 = f"{percentile(per_tok, 50):.0f}" if per_tok else "n/a"
+        print(f"hw twin: {hw['total_pj'] / 1e6:.2f} uJ total "
+              f"({hw['idle_pj'] / 1e6:.2f} uJ idle), slot utilization "
+              f"{hw['slot_utilization']:.1%}, pJ/token p50 {p50}")
+        if args.paged:
+            print(f"prefix credit: {hw['prefix_saved_pj'] / 1e6:.2f} uJ "
+                  f"saved over {int(hw['prefix_hits'])} hits "
+                  f"({int(hw['prefix_tokens_saved'])} prefill positions)")
+        if args.spec and hw.get("spec_accepted_tokens"):
+            print(f"spec energy: {hw['spec_pj_per_accepted_token']:.0f} "
+                  f"pJ/accepted-token "
+                  f"({hw['spec_rejected_pj'] / 1e6:.2f} uJ on rejected "
+                  f"positions)")
+    if wear_monitor is not None:
+        s = wear_monitor.summary()
+        print(f"wear admission: weight {args.wear_weight:g}, endurance "
+              f"frac {s['endurance_frac']:.3g} "
+              f"({int(s['writes_per_tile'])} writes/tile pre-aged)")
     if args.chunk_tokens:
         print(f"chunked: {eng.chunk_waves} chunk waves "
               f"(chunk_tokens={args.chunk_tokens})")

@@ -11,7 +11,11 @@ atomic keep-N checkpoints, auto-resume, the straggler watchdog and
 restartable data. On the card each batch shape's step is captured into a
 CUDA graph at its first call and replayed after (``--graphs``, the
 default there); ``--no-graphs`` runs the same step eagerly, and the CPU
-takes no graphs. The reference's ``--mesh``, ``--fake-devices``,
+takes no graphs. With ``--quant timefloats`` the hw twin's ``HwMonitor``
+(placement plus a meta-device census of the loss) books each step's
+projected crossbar energy and cell writes; the log lines carry the step's
+uJ, the end prints the run's totals, and the final checkpoint's metadata
+holds them under ``hw``. The reference's ``--mesh``, ``--fake-devices``,
 ``--trace-out`` and ``--metrics-out`` wait for the parallel and
 observability slices.
 """
@@ -27,7 +31,7 @@ def main(argv=None):
     ap.add_argument("--quant", default="timefloats",
                     choices=["timefloats", "none"])
     ap.add_argument("--tf-mode", default="pallas",
-                    choices=["pallas", "separable"])
+                    choices=["pallas", "separable", "exact"])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--steps", type=int, default=100)
@@ -91,20 +95,42 @@ def main(argv=None):
                         device=device)
     step_fn = tsl.make_train_step(cfg, tcfg, graphs=graphs)
 
+    # Digital-twin telemetry (DESIGN.md §6): placement and census once,
+    # then per-step energy and write counters ride the metrics.
+    hw_monitor = None
+    if args.quant == "timefloats":
+        from repro_torch.hw.schedule import HwMonitor
+
+        hw_monitor = HwMonitor.for_training(state.params, pipe.batch_at(0),
+                                            cfg)
+        pl = hw_monitor.placement
+        print(f"hw twin: {pl.tiles} tiles / {pl.macros} macros "
+              f"(util {pl.utilization:.1%}), "
+              f"{hw_monitor.step_schedule.energy_pj / 1e6:.2f} uJ/step, "
+              f"{hw_monitor.step_schedule.cells_written} cell writes/step",
+              flush=True)
+
     def on_metrics(step, m):
+        hw = (f" hw {m['hw_step_energy_uj']:.2f}uJ"
+              if "hw_step_energy_uj" in m else "")
         print(f"step {step:5d} loss {m['loss']:.4f} gnorm "
-              f"{m['grad_norm']:.2f} {m['step_s']:.2f}s", flush=True)
+              f"{m['grad_norm']:.2f} {m['step_s']:.2f}s{hw}", flush=True)
 
     loop = LoopConfig(total_steps=args.steps, log_every=args.log_every,
                       ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
     t0 = time.monotonic()
     state, report = run_loop(state, step_fn, pipe.batch_at, loop,
-                             on_metrics=on_metrics)
+                             on_metrics=on_metrics, hw_monitor=hw_monitor)
     last = report.losses[-1] if report.losses else float("nan")
     print(f"done: steps={report.steps_run} resumed_from="
           f"{report.resumed_from} stragglers={report.straggler_events} "
           f"final_loss={last:.4f} "
           f"wall={time.monotonic() - t0:.1f}s", flush=True)
+    if report.hw is not None:
+        print(f"hw twin totals: {report.hw['total_energy_j']:.3e} J, "
+              f"{report.hw['total_cell_writes']:.3g} cell writes, "
+              f"endurance used {report.hw['endurance_frac']:.2e}",
+              flush=True)
     return 0
 
 

@@ -39,9 +39,22 @@ pool with radix prefix reuse (DESIGN.md §8).
   per-step scratch pages (no eviction; the trash page when the pool is
   short), released after the step.
 
-- **Admission** goes through ``serve/sched.Scheduler`` (FCFS with a
+- **Admission** goes through ``serve/sched.Scheduler``: FCFS with a
   bounded skip-ahead past requests that cannot reserve pages and a
-  starvation guard).
+  starvation guard, or ``sched="cost"``, cheapest projected crossbar
+  energy first (``hw/schedule.AdmissionCost.for_model``, optionally with
+  a wear surcharge), against an optional per-step ``budget``.
+- **Energy books** (``track_energy``, on by default as in the reference,
+  DESIGN.md §6): at ``quant="timefloats"`` the hw twin's
+  ``ServeEnergyModel`` books every prefill wave, chunk wave and decode or
+  verify step at the crossbar read energy of its op census, each request
+  its share (``Request.energy_pj``, ``Finished.energy_pj`` /
+  ``pj_per_token``), a radix hit the energy its shorter bucket saved, and
+  a wear book the per-tile reads; ``hw_telemetry()`` and ``stats()``
+  report the totals. A census is taken once per shape on meta tensors
+  (``hw/schedule.capture_census``): it runs no step, writes no state,
+  captures nothing and launches nothing, so the books move no stream, no
+  launch count and no ``compile_cache_stats()``.
 - **Paged mode** (``paged=True``): the slot rows become a fixed inventory
   of ``page_size``-token pages (``serve/kvpool.PagePool``) addressed
   through per-slot page tables. Admission matches the prompt against a
@@ -75,11 +88,11 @@ reference's token for token as greedy ones do.
   static tensors, updated in place. Admission, page tables, scratch pages
   and the step's one device->host copy stay outside the graphs.
 
-Not ported: the cost scheduler, tracing, metrics, health and the hardware
-twin's energy hooks.
+Not ported: tracing, metrics and health (the observability slice).
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from typing import Deque, Dict, List, NamedTuple, Optional, Tuple
@@ -89,11 +102,13 @@ import torch
 
 from repro_torch import random as rnd
 from repro_torch.configs.base import ModelConfig
+from repro_torch.hw.schedule import StepBudget
 from repro_torch.kernels.sampling import sample_tokens
 from repro_torch.models import model as model_lib
 from repro_torch.serve.kvpool import PagePool
 from repro_torch.serve.radix import RadixCache
 from repro_torch.serve.request import (Finished, Request, StepGraphs,
+                                      make_serve_energy_model, memo_census,
                                       percentile)
 from repro_torch.serve.sched import Scheduler
 from repro_torch.serve.spec import SpecConfig, chain_accept, propose_ngram
@@ -145,13 +160,15 @@ def _admit_update(state: EngineState, logits: Tensor, ids: Tensor,
 
 
 class Engine:
-    """Fixed-slot continuous batching with a fused device step, FCFS
-    admission, and optionally the paged cache pool with radix prefix reuse
-    (``paged``), chunked prefill (``chunk_tokens``) and speculative
-    decoding (``spec``). ``device`` defaults to the card. ``graphs``
-    (default: on for a CUDA engine) captures every step callable into a
-    CUDA graph at its first call and replays it after; ``graphs=False``
-    runs the same callables eagerly, and a CPU engine cannot take graphs."""
+    """Fixed-slot continuous batching with a fused device step, FCFS or
+    cost-aware admission (``sched``, ``budget``), and optionally the paged
+    cache pool with radix prefix reuse (``paged``), chunked prefill
+    (``chunk_tokens``) and speculative decoding (``spec``). ``device``
+    defaults to the card. ``graphs`` (default: on for a CUDA engine)
+    captures every step callable into a CUDA graph at its first call and
+    replays it after; ``graphs=False`` runs the same callables eagerly, and
+    a CPU engine cannot take graphs. ``track_energy`` keeps the hw twin's
+    energy books (a no-op unless ``cfg.quant == "timefloats"``)."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
                  max_len: int = 512, eos_id: Optional[int] = None,
@@ -160,7 +177,9 @@ class Engine:
                  fused_decode: Optional[bool] = None,
                  chunk_tokens: Optional[int] = None,
                  spec: Optional[SpecConfig] = None, device="cuda",
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, track_energy: bool = True,
+                 sched: str = "fcfs", budget: Optional[StepBudget] = None,
+                 wear_weight: float = 0.0, wear_endurance=None):
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -173,6 +192,7 @@ class Engine:
             graphs = self.device.type == "cuda"
         self.graphs = StepGraphs(self.device, capture=graphs)
         self.decode_launches = 0
+        self._step_cap: Optional[int] = None   # the last decode's KV cap
         self.paged = paged
         # Fused split-K paged decode: on for paged engines unless asked
         # off; dense engines have no paged kernel to fuse.
@@ -225,7 +245,28 @@ class Engine:
                 num_pages=num_pages, device=self.device)
         else:
             cache = model_lib.init_cache(cfg, slots, max_len, self.device)
-        self.sched = Scheduler("fcfs", chunk_tokens=self.chunk_tokens)
+        # The pJ-priced admission cost is built only when something reads
+        # it (the cost policy or an energy budget): the placement walk is
+        # host work an fcfs engine need not pay.
+        acost = None
+        if sched == "cost" or (budget is not None
+                               and budget.prefill_pj is not None):
+            from repro_torch.hw.schedule import AdmissionCost
+
+            acost = AdmissionCost.for_model(params, cfg,
+                                            wear_weight=wear_weight,
+                                            endurance=wear_endurance)
+        self.sched = Scheduler(sched, cost=acost, budget=budget,
+                               chunk_tokens=self.chunk_tokens)
+        # What fixes the shapes the census programs see (the draft model
+        # of a model-draft engine is not memoized: its params are its own).
+        geometry = (cfg, slots, max_len, paged, page_size if paged else None,
+                    num_pages, self.fused_decode,
+                    None if spec is None else spec.k)
+        self._hw = make_serve_energy_model(
+            cfg, slots, track_energy, params=params,
+            census=(None if self._spec_model
+                    else functools.partial(memo_census, geometry)))
         z_i = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self.state = EngineState(
             cache=cache,
@@ -312,12 +353,93 @@ class Engine:
             temps[r] = req.temperature
             budgets[r] = req.max_new_tokens
             tags[r] = req.uid & 0x7FFFFFFF
+        if self._hw is not None:
+            mode = "paged" if self.paged else "dense"
+            pj = self._hw.prefill_bucket_pj(
+                (sb, slots, mode), self._census_prefill, self.params,
+                self.state.cache, tokens, plens,
+                offs if self.paged else None, ids)
+            share = self._hw.on_prefill_wave(pj, len(group),
+                                             tokens=slots * sb)
+            for _, req, _, _ in group:
+                req.energy_pj += share
+            if self.paged:
+                self._credit_prefix_hits(group, sb, pj)
         if self._spec_model:
             self.graphs.call(f"draft_prefill[{sb}]", self._draft_prefill_fn(),
                              tokens, plens, ids)
         return self.graphs.call(f"prefill[{sb}]", self._prefill_fn(),
                                 tokens, plens, offs, ids, temps, budgets,
                                 tags)
+
+    # -- the hw twin's census programs: the model calls of each step
+    # callable, which ``capture_census`` runs on meta tensors ---------------
+    def _census_prefill(self, params, cache, tokens, plens, offs, ids):
+        if self.paged:
+            model_lib.prefill_into_pages(params, tokens, self.cfg, cache,
+                                         plens, offs, ids)
+        else:
+            model_lib.prefill_into_slots(params, tokens, self.cfg, cache,
+                                         plens, ids, max_len=self.max_len,
+                                         offsets=offs)
+
+    def _census_decode(self, params, cache, tokens, cap, dparams=None,
+                       dcache=None):
+        """A decode step, or the chain verify of ``tokens`` (slots, K+1)
+        with the draft model's K+1 decode steps before it."""
+        if self.spec is None:
+            model_lib.decode_step(params, cache, tokens, self.cfg,
+                                  kv_cap=cap, fused_paged=self.fused_decode)
+            return
+        if dparams is not None:
+            for _ in range(self.spec.k + 1):
+                _, dcache = model_lib.decode_step(
+                    dparams, dcache, tokens[:, :1], self.spec.draft_cfg)
+        model_lib.verify_step(params, cache, tokens, self.cfg, kv_cap=cap,
+                              fused_paged=self.fused_decode)
+
+    def _book_decode(self, cap: Optional[int], emit) -> None:
+        """Book the step's decode (or verify) energy, after the waves'
+        done masks: a request that finished at prefill takes no decode
+        share."""
+        hw, slots = self._hw, self.slots
+        if hw.decode_step_pj is None:
+            depth = 1 if self.spec is None else self.spec.k + 1
+            tokens = np.zeros((slots, depth), np.int32)
+            draft = ((self.spec.draft_params, self._spec_dcache)
+                     if self._spec_model else ())
+            hw.observe_decode(self._census_decode, self.params,
+                              self.state.cache, tokens, cap, *draft)
+        n_act = len(self.active)
+        if self.spec is None:
+            share = hw.on_decode_step(n_act, tokens=slots)
+        else:
+            emitted = sum(int(emit[s]) for s in self.active)
+            share, _acc, _rej, _tot = hw.on_spec_step(
+                n_act, emitted, self.spec.k + 1,
+                tokens=slots * (self.spec.k + 1))
+        for req in self.active.values():
+            req.energy_pj += share
+
+    def _credit_prefix_hits(self, group, sb: int, pj_exec: float) -> None:
+        """A prefix hit is charged the executed suffix bucket only; its
+        credit is the cost delta to the bucket the whole prompt would have
+        needed (0 when the pow2 bucket does not shrink)."""
+        slots = self.slots
+        for _slot, req, skip, _pages in group:
+            if skip <= 0:
+                continue
+            fsb = bucket_for(len(req.prompt), self.max_len, self.min_bucket)
+            saved = 0.0
+            if fsb != sb:
+                z = np.zeros((slots,), np.int32)
+                pj_full = self._hw.prefill_bucket_pj(
+                    (fsb, slots, "paged"), self._census_prefill,
+                    self.params, self.state.cache,
+                    np.zeros((slots, fsb), np.int32), z, z,
+                    np.full((slots,), slots, np.int32))
+                saved = max(pj_full - pj_exec, 0.0) / slots
+            self._hw.on_prefix_hit(saved, skip)
 
     def _chunk_wave_fn(self):
         """ONE fixed-shape callable for every chunk wave: ``wids`` select
@@ -370,6 +492,15 @@ class Engine:
                 budgets[r] = req.max_new_tokens
                 tags[r] = req.uid & 0x7FFFFFFF
                 finals.append((r, slot, req))
+        if self._hw is not None:
+            mode = "paged" if self.paged else "dense"
+            pj = self._hw.prefill_bucket_pj(
+                ("chunk", C, slots, mode), self._census_prefill, self.params,
+                self.state.cache, tokens, tots, offs, wids)
+            share = self._hw.on_prefill_wave(pj, len(self._chunking),
+                                             tokens=slots * C)
+            for req in self._chunking.values():
+                req.energy_pj += share
         out = self.graphs.call(f"prefill[c{C}]", self._chunk_wave_fn(),
                                tokens, tots, offs, wids, aids, temps,
                                budgets, tags)
@@ -478,8 +609,8 @@ class Engine:
 
     def _decode_step(self):
         """The step's decode (or chain verify) through its callable, keyed
-        by the host-picked KV-extent cap."""
-        cap = self._decode_cap()
+        by the host-picked KV-extent cap (kept for the energy books)."""
+        cap = self._step_cap = self._decode_cap()
         self.decode_launches += 1
         base = "decode_and_sample" if self.spec is None else \
             "decode_and_verify"
@@ -662,6 +793,7 @@ class Engine:
         req.submit_t = time.monotonic()
         req.prefilled = 0
         req.skipped = 0
+        req.queued_step = self.sched.now
         self.queue.append(req)
 
     def step(self) -> List[Finished]:
@@ -755,6 +887,8 @@ class Engine:
             else:
                 tok = tok.reshape(self.slots, self.spec.k + 1)
                 emit = parts[2 * len(waves) + 1]
+            if self._hw is not None:
+                self._book_decode(self._step_cap, emit)
             for slot, req in list(self.active.items()):
                 e = int(emit[slot])
                 if self.spec is not None:
@@ -781,11 +915,14 @@ class Engine:
         req.last_token_t = now
 
     def _finish(self, req: Request, now: float) -> Finished:
+        n_tok = len(req.prompt) + len(req.generated)
         lat = max(now - req.submit_t, 0.0)
         self._latencies.append(lat)
         self._new_tokens += len(req.generated)
         self._finished_count += 1
         return Finished(uid=req.uid, tokens=np.asarray(req.generated),
+                        energy_pj=req.energy_pj,
+                        pj_per_token=req.energy_pj / max(n_tok, 1),
                         latency_s=lat,
                         ttft_s=max(req.first_token_t - req.submit_t, 0.0))
 
@@ -812,10 +949,19 @@ class Engine:
             v for k, v in stats.items() if k.startswith("decode_and_"))
         return stats
 
+    def hw_telemetry(self) -> Optional[Dict[str, float]]:
+        """The hw twin's serving aggregates (None when its books are off):
+        attributed against total crossbar energy, the per-phase split, the
+        idle remainder (empty decode slots and dummy wave rows), decode
+        slot utilization, the prefix-hit credit, the speculative split and
+        the wear book's per-tile reads."""
+        return self._hw.telemetry() if self._hw is not None else None
+
     def stats(self) -> Dict[str, float]:
         """Throughput/latency aggregates (zero-request safe); on a paged
         engine the pool and radix counters, on a speculative one the
-        draft counters."""
+        draft counters, with energy books the twin's telemetry as
+        ``hw_<key>``."""
         out = {
             "steps": float(self.steps),
             "host_transfers": float(self.host_transfers),
@@ -850,4 +996,7 @@ class Engine:
                 "spec_tokens_per_step": (self._new_tokens
                                          / max(self.steps, 1)),
             })
+        if self._hw is not None:
+            out.update({f"hw_{k}": float(v)
+                        for k, v in self._hw.telemetry().items()})
         return out

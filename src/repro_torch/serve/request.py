@@ -1,8 +1,8 @@
 """Shared serving types (port of ``repro.serve.request``): request and
-finished records, the nearest-rank percentile, and :class:`StepGraphs`, the
+finished records, the nearest-rank percentile, :class:`StepGraphs`, the
 counterpart of the reference's ``counting_jit``: an engine's step callables
 built once per static shape and counted, each a captured CUDA graph on the
-card."""
+card, and :func:`make_serve_energy_model`, the hw twin's serving books."""
 from __future__ import annotations
 
 import contextlib
@@ -23,11 +23,13 @@ class Request:
     max_new_tokens: int = 32
     temperature: float = 0.0
     generated: List[int] = dataclasses.field(default_factory=list)
+    energy_pj: float = 0.0        # attributed crossbar read energy
     submit_t: float = dataclasses.field(default_factory=time.monotonic)
     prefilled: int = 0            # prompt tokens already in the cache (the
                                   # chunked-prefill resume cursor)
     skipped: int = 0              # times a younger request was admitted
                                   # first (serve/sched's starvation guard)
+    queued_step: int = 0          # scheduler step at submit (age basis)
     first_token_t: float = 0.0    # wall time the first token landed (TTFT)
     last_token_t: float = 0.0     # wall time of the latest token
 
@@ -36,6 +38,8 @@ class Request:
 class Finished:
     uid: int
     tokens: np.ndarray
+    energy_pj: float = 0.0        # prefill + attributed decode shares
+    pj_per_token: float = 0.0     # energy / (prompt + generated tokens)
     latency_s: float = 0.0        # submit -> finished wall time
     ttft_s: float = 0.0           # submit -> first token wall time
 
@@ -46,6 +50,52 @@ def percentile(xs, p: float) -> float:
         return 0.0
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
+
+
+def make_serve_energy_model(cfg, slots: int, track_energy: bool,
+                            params=None, census=None):
+    """The hw twin's serving books (DESIGN.md §6): only at
+    ``quant="timefloats"`` and when asked. With ``params`` the model also
+    carries a per-tile wear book (DESIGN.md §13) keyed by the mapper's
+    placement, so the reads an engine books land per tile. ``census``
+    replaces ``hw.schedule.capture_census`` (an engine's memo over it)."""
+    if not (track_energy and cfg.quant == "timefloats"):
+        return None
+    from repro_torch.hw.schedule import ServeEnergyModel, TileWearBook
+
+    wear = None
+    if params is not None:
+        from repro_torch.hw.mapper import map_params
+
+        wear = TileWearBook(map_params(params, cfg), cfg)
+    return ServeEnergyModel(slots, wear=wear, census=census)
+
+
+# Step censuses by engine geometry and step shape, shared by every engine
+# of one process: a census is a function of shapes only, and a drain that
+# builds several engines of one configuration (graphs, eager twin, plain
+# versions) traces each of its programs once.
+_CENSUS_MEMO: Dict[tuple, list] = {}
+
+
+def _signature(a):
+    if isinstance(a, (np.ndarray, Tensor)):
+        return ("array", tuple(a.shape), str(a.dtype))
+    return a
+
+
+def memo_census(geometry: tuple, fn, *args) -> list:
+    """``hw.schedule.capture_census(fn, *args)`` memoized on ``geometry``
+    (whatever fixes the shapes of the engine's parameters and cache),
+    ``fn``'s name and the shapes and values of the step's other
+    arguments. ``args`` are (params, cache, step inputs...)."""
+    from repro_torch.hw.schedule import capture_census
+
+    key = (geometry, getattr(fn, "__name__", fn),
+           tuple(_signature(a) for a in args[2:]))
+    if key not in _CENSUS_MEMO:
+        _CENSUS_MEMO[key] = capture_census(fn, *args)
+    return _CENSUS_MEMO[key]
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,13 @@
   median is counted as a straggler event and triggers an emergency
   checkpoint;
 - deterministic data: batch = f(seed, step), so a restart replays the same
-  stream.
+  stream;
+- digital-twin telemetry (DESIGN.md §6): pass ``hw_monitor`` (an
+  ``hw.schedule.HwMonitor``, built from the step's census and the model's
+  crossbar placement) and every step's metrics carry the projected crossbar
+  energy, cumulative in-situ cell writes and per-tile endurance; a resumed
+  run fast-forwards the books to its step, and the loop report and the
+  final checkpoint's metadata carry the run totals.
 
 The step donates its state (train/step.py): the state it returns is its
 own buffers, which its next call overwrites, so a checkpoint copies every
@@ -16,15 +22,14 @@ leaf to the host on this thread before the next step (as
 buffers by the step itself.
 
 The reference's observability hooks (tracer, metrics registry, health
-monitors) and its digital-twin ``hw_monitor`` wait for the port's
-observability and hw-twin slices.
+monitors) wait for the port's observability slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import statistics
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -50,13 +55,15 @@ class LoopReport:
     losses: List[float]
     straggler_events: int
     resumed_from: Optional[int]
+    hw: Optional[Dict[str, float]] = None   # HwMonitor.summary() totals
 
 
 def run_loop(state: TrainState, train_step: Callable,
              batch_fn: Callable[[int], Dict[str, torch.Tensor]],
              cfg: LoopConfig, *,
              on_metrics: Optional[Callable[[int, Dict[str, float]], None]]
-             = None) -> tuple[TrainState, LoopReport]:
+             = None, hw_monitor: Optional[Any] = None
+             ) -> tuple[TrainState, LoopReport]:
     mgr = (CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
            if cfg.ckpt_dir else None)
     resumed_from = None
@@ -70,6 +77,10 @@ def run_loop(state: TrainState, train_step: Callable,
     durations: List[float] = []
     stragglers = 0
     start = int(state.step)
+    if hw_monitor is not None and start:
+        # A resumed run: the modeled arrays were already programmed
+        # ``start`` times.
+        hw_monitor.resume_at(start)
     for step in range(start, cfg.total_steps):
         batch = batch_fn(step)
         t0 = time.monotonic()
@@ -77,6 +88,9 @@ def run_loop(state: TrainState, train_step: Callable,
         loss = float(metrics["loss"])  # waits for the device: the step's end
         dt = time.monotonic() - t0
         losses.append(loss)
+        if hw_monitor is not None:  # the twin's energy and write books
+            metrics = dict(metrics)
+            metrics.update(hw_monitor.on_step())
 
         if len(durations) >= cfg.min_median_window:
             med = statistics.median(durations)
@@ -94,10 +108,11 @@ def run_loop(state: TrainState, train_step: Callable,
         if mgr is not None and (step + 1) % cfg.ckpt_every == 0:
             mgr.save(step + 1, state)
 
+    hw = hw_monitor.summary() if hw_monitor is not None else None
     if mgr is not None:
-        mgr.save(cfg.total_steps, state)
+        mgr.save(cfg.total_steps, state, None if hw is None else {"hw": hw})
         mgr.wait()
     return state, LoopReport(steps_run=cfg.total_steps - start,
                              final_step=int(state.step), losses=losses,
                              straggler_events=stragglers,
-                             resumed_from=resumed_from)
+                             resumed_from=resumed_from, hw=hw)

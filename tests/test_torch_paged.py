@@ -21,7 +21,11 @@ activations, ``mode="pallas"``, parameters carried over by convert.py).
   equal the reference engine's on a prefix-sharing stream, with eviction
   (``num_pages=7``) and with ``fused_decode=False``; the drain ends with
   all-trash tables and a conserved pool; an oversized request raises the
-  same error. Each reference drain runs once, in a module fixture.
+  same error. Each reference drain runs once, in a module fixture, with
+  the hw twin's energy books on (the reference engine's default): the
+  port's books of the evicting drain (per-request pJ and pJ per token,
+  ``hw_telemetry()`` with the prefix credit and the wear book's per-tile
+  reads) equal them exactly.
 """
 import dataclasses
 
@@ -152,8 +156,11 @@ def test_scheduler_picks_follow_the_reference():
     got = _sched_script(sched, Request)
     assert got == _sched_script(jsched, JRequest)
     assert any(skipped for _, queued in got for _, skipped in queued)
-    with pytest.raises(NotImplementedError):
-        sched.Scheduler("cost")
+    # policy="cost" is ported (its picks: tests/test_torch_hw.py); an
+    # unknown policy raises as the reference's does.
+    assert sched.Scheduler("cost").policy == "cost"
+    with pytest.raises(ValueError):
+        sched.Scheduler("lifo")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -267,12 +274,24 @@ def _stream(vocab, n=5, seed=1, max_new=4):
                              .astype(np.int32)]), max_new) for u in range(n)]
 
 
-def _drain(eng, req_cls, stream):
+def _drain(eng, req_cls, stream, finished=None):
+    """The drain's streams by uid; its Finished records are appended to
+    ``finished`` when given."""
     for uid, (prompt, max_new) in enumerate(stream):
         eng.submit(req_cls(uid=uid, prompt=prompt.copy(),
                            max_new_tokens=max_new))
-    return {f.uid: [int(t) for t in f.tokens]
-            for f in eng.run_until_drained()}
+    done = eng.run_until_drained()
+    if finished is not None:
+        finished.extend(done)
+    return {f.uid: [int(t) for t in f.tokens] for f in done}
+
+
+def _books(eng, finished) -> dict:
+    """An engine's energy books after a drain: per request (energy_pj,
+    pj_per_token), and the twin's telemetry."""
+    return {"requests": {f.uid: (f.energy_pj, f.pj_per_token)
+                         for f in finished},
+            "telemetry": eng.hw_telemetry()}
 
 
 ENGINE_RUNS = {"evicting": {"num_pages": 7},
@@ -289,8 +308,10 @@ def reference_drains(models):
     out = {}
     for name, kw in ENGINE_RUNS.items():
         eng = JEngine(pj, cj, slots=SLOTS, max_len=MAX_LEN, paged=True,
-                      page_size=PAGE, track_energy=False, **kw)
-        out[name] = (_drain(eng, JRequest, stream), eng.stats())
+                      page_size=PAGE, **kw)
+        done = []
+        streams = _drain(eng, JRequest, stream, done)
+        out[name] = (streams, dict(eng.stats(), books=_books(eng, done)))
     return stream, out
 
 
@@ -313,6 +334,33 @@ def test_paged_engine_matches_reference_engine(models, reference_drains,
         assert st["radix_evictions"] > 0
     assert not eng.state.cache.layers[0].pt.any()  # all-trash tables
     assert eng.pool.conserved()
+
+
+def test_paged_drain_energy_books_equal_reference_engine(models,
+                                                       reference_drains):
+    """The evicting drain with the energy books on (both engines'
+    default): every request's attributed pJ and pJ per token, and every
+    telemetry figure (attributed, idle and total pJ, the prefix credit of
+    its radix hits, slot utilization, the per-tile read chunks), equal
+    the reference engine's exactly. The books are host arithmetic over
+    the same censuses, booked in the same order."""
+    cj, ct, _, pt = models
+    stream, ref = reference_drains
+    want = ref["evicting"][1]["books"]
+    _pin_splits(cj, rows=SLOTS)
+    eng = Engine(pt, ct, slots=SLOTS, max_len=MAX_LEN, paged=True,
+                 page_size=PAGE, device="cpu", **ENGINE_RUNS["evicting"])
+    done = []
+    assert _drain(eng, Request, stream, done) == ref["evicting"][0]
+    got = _books(eng, done)
+    assert got["requests"] == want["requests"]
+    assert got["telemetry"] == want["telemetry"]
+    tel = got["telemetry"]
+    assert tel["prefix_hits"] > 0 and tel["prefix_saved_pj"] > 0
+    assert tel["total_pj"] == pytest.approx(
+        tel["attributed_pj"] + tel["idle_pj"], rel=1e-15)
+    st = eng.stats()
+    assert st["hw_total_pj"] == tel["total_pj"]
 
 
 def test_oversized_request_raises_as_reference(models):

@@ -293,11 +293,13 @@ def _opt(cls):
                 grad_clip=1e9)
 
 
-def _reference_run(dtype: str, params=None) -> dict:
+def _reference_run(dtype: str, params=None, strict: bool = False) -> dict:
     """Reference params (a jitted init from PRNGKey(0) unless given), three
     batches, and three steps of the reference's ``make_train_step``: their
     losses, and the step-0 gradients read back as (p0 - p1) / LR (exact to
-    an ulp of p0 / LR)."""
+    an ulp of p0 / LR). ``strict`` compiles the step without XLA's excess
+    precision (``xla_allow_excess_precision=False``), so every bf16 op
+    rounds, as the reference's ops do one by one."""
     cj = _ref_config(dtype)
     jcfg = jstep.TrainConfig(optimizer=_opt(jopt.OptimizerConfig))
     if params is None:
@@ -311,6 +313,9 @@ def _reference_run(dtype: str, params=None) -> dict:
     pipe = JPipeline(cj, 2, 32, seed=0, kind="lm")
     batches = [to_numpy(pipe.batch_at(i)) for i in range(3)]
     step_fn = jax.jit(jstep.make_train_step(cj, jcfg))
+    if strict:
+        step_fn = step_fn.lower(state, batches[0]).compile(
+            compiler_options={"xla_allow_excess_precision": False})
     losses = []
     for b in batches:
         state, m = step_fn(state, b)
@@ -395,24 +400,27 @@ def test_bf16_mlp_forward_bitwise(reduced):
 
 
 def test_bf16_loss_and_grads_close_to_reference(reduced):
-    """bf16 activations: the loss within 1e-3 relative, but per-leaf
-    gradient cosines only > 0.98 (0.984-0.996 measured). The forward
-    differs from the reference by a bf16 ulp in some attention outputs
-    (f32 softmax and sums in another order), and the backward rounds its
-    bf16 cotangents at other points than XLA, which keeps excess precision
-    across fused bf16 ops; each linear's backward then quantizes g to
-    5-bit codes, which turns an ulp into a code step. With f32 activations
-    the same comparison gives cosines >= 0.99999997 (above)."""
-    ref = _reference_run("bfloat16", reduced["params"])
+    """bf16 activations, against the reference's step compiled without
+    XLA's excess precision (every bf16 op rounds): the loss within 1e-6
+    relative (6.2537169 against the port's 6.2537165) and per-leaf gradient
+    cosines > 0.99 (0.99443 to 1.0, tests/torch_bf16_probe.py). With the
+    default compile, which keeps bf16 chains in f32 across 24 of its fused
+    computations, the loss was 6.2542725 and the cosines 0.984-0.996. What is
+    left: the forward differs by a bf16 ulp in some attention outputs (f32
+    softmax and sums in another order), and each linear's backward
+    quantizes g to 5-bit codes, which turns an ulp into a code step. With
+    f32 activations the same comparison gives cosines >= 0.99999997
+    (above)."""
+    ref = _reference_run("bfloat16", reduced["params"], strict=True)
     ct = _port_config(dtype="bfloat16")
     params = from_jax_params(ref["params"], ct, "cpu")
     metrics, got = tstep.loss_and_grads(ct, params, _batch(ref["batches"][0]))
     loss0 = ref["losses"][0]
-    assert abs(float(metrics["loss"]) - loss0) <= LOSS_RTOL * abs(loss0)
+    assert abs(float(metrics["loss"]) - loss0) <= 1e-6 * abs(loss0)
     want = from_jax_params(ref["grads"], ct, "cpu")
     for (path, g), w in zip(tree_lib.leaves_with_path(got),
                             tree_lib.leaves(want)):
-        assert _cosine(g, w) > 0.98, tree_lib.path_str(path)
+        assert _cosine(g, w) > 0.99, tree_lib.path_str(path)
 
 
 @pytest.mark.parametrize("remat", ["none", "full"])

@@ -3,10 +3,12 @@
 Not a test (pytest does not collect it): a diagnostic for ROADMAP Queue 3.
 On reduced qwen3-0.6b with bf16 activations (the case of
 ``tests/test_torch_train.py::test_bf16_loss_and_grads_close_to_reference``)
-it takes the step-0 loss and gradients three ways: the reference jitted
+it takes the step-0 loss and gradients four ways: the reference jitted
 (as its train step runs), the reference op by op under
-``jax.disable_jit()`` (every bf16 op rounds, as in PyTorch), and the port.
-It prints each leaf's cosine for the three pairs, then counts the fusions
+``jax.disable_jit()`` (every bf16 op rounds, as in PyTorch), the reference
+compiled with ``xla_allow_excess_precision=False`` (every bf16 op rounds
+inside XLA's fusions too; what that test compares against), and the port.
+It prints each leaf's cosine for the pairs, then counts the fusions
 of the reference's optimized HLO that read bf16 and chain two or more f32
 arithmetic ops without rounding between them (XLA's excess precision),
 and prints the largest. Run: ``PYTHONPATH=src:tests python
@@ -37,19 +39,25 @@ def main() -> None:
     loss_jit, g_jit = jax.jit(vg)(jp, jb)
     with jax.disable_jit():
         loss_eager, g_eager = vg(jp, jb)
+    loss_strict, g_strict = jax.jit(vg).lower(jp, jb).compile(
+        compiler_options={"xla_allow_excess_precision": False})(jp, jb)
     ct = T._port_config(dtype="bfloat16")
     metrics, g_port = tstep.loss_and_grads(
         ct, from_jax_params(params, ct, "cpu"), T._batch(batch))
     print(f"loss: reference jitted {float(loss_jit):.7f}, op by op "
-          f"{float(loss_eager):.7f}, port {float(metrics['loss']):.7f}")
-    g_jit = from_jax_params(to_numpy(g_jit), ct, "cpu")
-    g_eager = from_jax_params(to_numpy(g_eager), ct, "cpu")
-    print("leaf: cosine port~jitted, port~op-by-op, op-by-op~jitted")
-    for (path, g), a, e in zip(tree_lib.leaves_with_path(g_port),
-                               tree_lib.leaves(g_jit),
-                               tree_lib.leaves(g_eager)):
+          f"{float(loss_eager):.7f}, strict {float(loss_strict):.7f}, port "
+          f"{float(metrics['loss']):.7f}")
+    g_jit, g_eager, g_strict = (from_jax_params(to_numpy(g), ct, "cpu")
+                                for g in (g_jit, g_eager, g_strict))
+    print("leaf: cosine port~jitted, port~op-by-op, op-by-op~jitted, "
+          "port~strict")
+    for (path, g), a, e, st in zip(tree_lib.leaves_with_path(g_port),
+                                   tree_lib.leaves(g_jit),
+                                   tree_lib.leaves(g_eager),
+                                   tree_lib.leaves(g_strict)):
         print(f"  {tree_lib.path_str(path)}: {T._cosine(g, a):.6f} "
-              f"{T._cosine(g, e):.6f} {T._cosine(e, a):.6f}")
+              f"{T._cosine(g, e):.6f} {T._cosine(e, a):.6f} "
+              f"{T._cosine(g, st):.11f}")
 
     hlo = jax.jit(vg).lower(jp, jb).compile().as_text()
     fusions = re.findall(r"(%?fused_computation[\w.\-]*) (\([^\n]*\)) -> "
