@@ -129,7 +129,21 @@ logit tap reads each captured step's top logits after every replay.
              equal decode steps; the warm drain's streams must be the
              first's. The same requests are then drained with every kernel
              replaced by its plain version: the token streams must be
-             identical and the launch counts must not move.
+             identical and the launch counts must not move. The cold graph
+             drain runs traced (``obs.trace.Tracer``), with the engine's
+             metrics registry, a ``HealthMonitor`` and
+             ``default_serve_slos()``; its trace and metrics are written
+             (``.json``) to a temporary directory, where
+             ``validate_trace`` (the serving phases present, nothing
+             dropped, the pJ folds equal to ``hw_telemetry()`` exactly),
+             ``validate_health`` and the in-process ``obs_report
+             --validate`` must accept them, and the trace must hold one
+             ``host_transfer`` span a host transfer, one decode span a
+             decode launch and one ``compile[...]`` span a captured graph
+             (again after the warm drain, also traced: a replay emits no
+             compile span). Prints each span kind's count and host
+             seconds, and the warm drain's wall per step traced and, on
+             one more warm drain, untraced (information only).
 9. paged   — the same model, Engine(paged=True, slots=4, max_len=512,
              page_size=16), 8 greedy requests sharing a 48-token prefix
              (3 pages) with 5-60-token tails, 16 new tokens each, drained
@@ -149,7 +163,11 @@ logit tap reads each captured step's top logits after every replay.
              64 ulps). Last, an eviction case through the model's first 7
              layers: a 16-page pool, 8 new tokens each, kernels against
              plain versions (evictions, a conserved pool, all-trash tables,
-             >= 6 of 8 identical streams and identical first tokens).
+             >= 6 of 8 identical streams and identical first tokens). The
+             kernel drain and the eviction case's drain run traced, with
+             the serve phase's trace gates, ``radix.match`` and
+             ``radix.insert`` spans, and one ``pool.evict`` instant's pages
+             for each eviction ``stats()`` counts.
 10. chunked — the same model through its first 14 of 28 layers,
              Engine(chunk_tokens=64), dense (slots=4,
              max_len=512) and paged (page_size=16, the paged phase's 48-token
@@ -173,7 +191,10 @@ logit tap reads each captured step's top logits after every replay.
              released and the pool conserved, all-trash tables, every
              divergence from the spec-off streams a near-tie flip (the logit
              tap maps a verify column to the token index it emits); for the
-             replay, drafts accepted. Prints steps, tokens per step, tok/s
+             replay, drafts accepted. The ngram graph drain runs traced,
+             with the serve phase's trace gates: its verify spans'
+             accepted and rejected pJ fold to the twin's speculative split
+             exactly. Prints steps, tokens per step, tok/s
              and TTFT of each beside the card's name and power limit. Then a
              dense self-draft drain (draft="model", the target its own
              draft, 4 requests of 16 tokens), with graphs and eagerly:
@@ -223,7 +244,14 @@ logit tap reads each captured step's top logits after every replay.
              and generator); 2 steps with the plain versions (step 0's
              loss bitwise, step 1's within 1e-3). Prints wall ms and host
              CPU s per replayed step against the eager step, warm-up and
-             capture seconds and each arm's peak device memory.
+             capture seconds and each arm's peak device memory. The graph
+             drain runs with a tracer, a metrics registry and a health
+             monitor: three ``train.step`` spans carrying the drain's
+             losses, a trace ``validate_trace`` accepts (``train.step``
+             required), ``train_steps`` and ``train_step_s`` at 3, the
+             twin's per-tile wear gauges (``hw_tile_writes_max`` 3,
+             labeled ``hw_tile_read_chunks``) and the health series
+             ``train.step_s`` and ``hw.tile_write_rate`` (1 a step).
 14. mla    — with qwen3's state freed: deepseek-v3 at full width cut to
              its three dense layers (``get_config("deepseek-v3-671b",
              n_layers=3)``: MLA, FFN 18432, vocab 129280, untied head;
@@ -1625,16 +1653,116 @@ def hold_warm(what: str, eng, redrain) -> None:
           f"{what}: a warm drain captured {added}")
 
 
+def span_kinds(tr) -> dict:
+    """{span kind: (count, host seconds)} of a tracer's finished spans; a
+    kind is the name up to its first ``[`` (``prefill.wave[64]`` and
+    ``compile[decode_and_sample]`` count as ``prefill.wave`` and
+    ``compile``)."""
+    out: dict = {}
+    for e in tr.events:
+        if e.phase == "X":
+            n, t = out.get(e.name.split("[")[0], (0, 0.0))
+            out[e.name.split("[")[0]] = (n + 1, t + e.t1 - e.t0)
+    return out
+
+
+def hold_trace(what: str, eng, tr, hm=None, table: bool = False) -> dict:
+    """The obs gates on a traced drain's engine: its trace and metrics
+    written (``.json``) to a temporary directory, ``validate_trace`` (the
+    required serving phases, nothing dropped, the pJ folds equal to
+    ``hw_telemetry()`` exactly) and, with a health monitor, its report
+    embedded and ``validate_health`` (alerts on tracked series, the SLO
+    burn re-derived from the exported gauges) empty, and the in-process
+    ``obs_report --validate`` returning 0; one ``host_transfer`` span a
+    host transfer, one decode span a decode launch, one ``compile[...]``
+    span a step graph captured, one ``pool.evict`` instant an eviction
+    (evicted pages summed). Prints each span kind's count and host
+    seconds (and, with ``table``, obs_report's summary). Returns the span
+    kinds."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import obs_report
+    from repro_torch.obs import export
+    from repro_torch.obs.health import export_slo_gauges
+
+    t0 = time.monotonic()
+    meta = {"hw": eng.hw_telemetry()}
+    if hm is not None:
+        rep = hm.report(slos=eng.slos, metrics=eng.metrics)
+        export_slo_gauges(eng.metrics, rep.slos)
+        meta["health"] = rep.to_dict()
+    with tempfile.TemporaryDirectory() as d:
+        tpath = os.path.join(d, "trace.json")
+        mpath = os.path.join(d, "metrics.json")
+        export.write_metrics(mpath, eng.metrics)
+        export.write_chrome_trace(tpath, tr, metadata=meta)
+        with open(tpath) as f:
+            payload = json.load(f)
+        with open(mpath) as f:
+            mdict = json.load(f)
+        problems = export.validate_trace(payload)
+        if hm is not None:
+            problems += export.validate_health(payload, mdict)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = obs_report.main([tpath, "--metrics", mpath, "--validate"])
+    kinds = span_kinds(tr)
+    names = [e.name for e in tr.events]
+    evicted = sum(e.args["evicted"] for e in tr.events
+                  if e.name == "pool.evict")
+    counts = {"host_transfer": (kinds["host_transfer"][0],
+                                eng.host_transfers),
+              "decode_and_*": (sum(n.startswith("decode_and_")
+                                   for n in names), eng.decode_launches),
+              "compile[...]": (kinds.get("compile", (0,))[0],
+                               sum(eng.graphs.counts.values())),
+              "pool.evict": (evicted, int(eng.stats().get(
+                  "radix_evictions", 0)))}
+    report = out.getvalue().splitlines()
+    if table:   # obs_report's span table, up to its compile spans
+        start = next(i for i, ln in enumerate(report)
+                     if ln.startswith("span"))
+        for ln in report[start:]:
+            if ln.startswith(("recompiles", "hw twin", "health", "--")):
+                break
+            print(f"{what}: obs_report: {ln}", flush=True)
+    print(f"{what}: trace of {len(tr.events)} events ({tr.dropped} "
+          f"dropped), validate_trace {problems or 'ok'}, obs_report "
+          f"--validate rc={rc} ({report[-1] if report else ''}); spans by "
+          f"kind (count, host s): " + ", ".join(
+              f"{k} {n} {t:.4f}" for k, (n, t) in sorted(kinds.items()))
+          + "; counted against the engine: " + ", ".join(
+              f"{k} {a}/{b}" for k, (a, b) in counts.items())
+          + (f"; health: {len(hm.alerts)} alerts over {len(hm.series)} "
+             f"series, SLOs " + ", ".join(
+                 f"{s['name']} burn {s['burn_rate']:.3g}"
+                 for s in meta["health"]["slos"]) if hm is not None else "")
+          + f"; checked in {time.monotonic() - t0:.2f}s", flush=True)
+    check(not problems, f"{what}: trace problems {problems}")
+    check(rc == 0, f"{what}: obs_report --validate returned {rc}")
+    check(tr.open_spans == 0 and tr.dropped == 0,
+          f"{what}: open spans {tr.open_spans}, dropped {tr.dropped}")
+    for k, (a, b) in counts.items():
+        check(a == b, f"{what}: {a} {k} in the trace, the engine counts {b}")
+    return kinds
+
+
 def phase_serve(torch, cfg, seed: int, params) -> dict:
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import sampling as ks
     from repro_torch.kernels import timefloats_matmul as km
     from repro_torch.models import model
+    from repro_torch.obs.health import HealthMonitor, default_serve_slos
+    from repro_torch.obs.trace import NOOP, Tracer
 
     km.timefloats_matmul_quantized.launches = 0
     ks.sample.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    eng, streams, wall, cpu = _drain(torch, params, cfg, seed)
+    tr = Tracer()
+    hm = HealthMonitor(tracer=tr)
+    eng, streams, wall, cpu = _drain(torch, params, cfg, seed, tracer=tr,
+                                     health=hm, slos=default_serve_slos())
     k1, k3 = km.timefloats_matmul_quantized.launches, ks.sample.launches
     graph_note("serve", eng, torch)
     st = eng.stats()
@@ -1658,13 +1786,29 @@ def phase_serve(torch, cfg, seed: int, params) -> dict:
     check(eng.host_transfers == eng.steps,
           f"host_transfers {eng.host_transfers} != steps {eng.steps}")
     hold_energy("serve", eng, eng.last_done, cfg)
+    hold_trace("serve", eng, tr, hm, table=True)
     again, steps0, g_snap = [], eng.steps, snap(eng)
     hold_warm("serve", eng, lambda: again.append(
         _drain(torch, params, cfg, seed, eng=eng)))
     check(again[0][1] == streams, "serve: the warm drain's streams differ")
+    traced_ms = 1e3 * again[0][2] / (eng.steps - steps0)
     print(f"serve: warm drain (every step a replay) in {again[0][2]:.2f}s: "
-          f"wall_ms_per_step={1e3 * again[0][2] / (eng.steps - steps0):.1f}"
+          f"wall_ms_per_step={traced_ms:.1f}"
           f" host_cpu_share={again[0][3] / again[0][2]:.3f}", flush=True)
+    # The warm drain ran traced: it captured nothing, so it added no
+    # compile span, and every step's transfer and decode have their span.
+    hold_trace("serve warm", eng, tr, hm)
+    eng.tracer = eng.graphs.tracer = NOOP
+    eng.health = None
+    steps0 = eng.steps
+    _, plain_streams, plain_wall, _ = _drain(torch, params, cfg, seed,
+                                             eng=eng)
+    check(plain_streams == streams, "serve: the untraced warm drain's "
+          "streams differ")
+    print(f"serve: warm drain wall_ms_per_step traced with health "
+          f"{traced_ms:.2f}, untraced "
+          f"{1e3 * plain_wall / (eng.steps - steps0):.2f} (information "
+          "only)", flush=True)
 
     km.timefloats_matmul_quantized.launches = 0
     ks.sample.launches = 0
@@ -1918,6 +2062,8 @@ def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
     from repro_torch.kernels import sampling as ks
     from repro_torch.kernels import timefloats_matmul as km
 
+    from repro_torch.obs.trace import Tracer
+
     counters = {"K1": km.timefloats_matmul_quantized, "K3": ks.sample,
                 "K4": kpa.paged_decode_attention, "K6": kp.gather_pages}
 
@@ -1927,7 +2073,9 @@ def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
 
     reset()
     torch.cuda.reset_peak_memory_stats()
-    eng, streams, wall, cpu = _paged_drain(torch, params, cfg, seed)
+    tr = Tracer()
+    eng, streams, wall, cpu = _paged_drain(torch, params, cfg, seed,
+                                           tracer=tr)
     launches = {k: fn.launches for k, fn in counters.items()}
     graph_note("paged", eng, torch)
     st = eng.stats()
@@ -1968,6 +2116,10 @@ def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
     hw = hold_energy("paged", eng, eng.last_done, cfg)
     check(hw["prefix_hits"] > 0 and hw["prefix_saved_pj"] > 0,
           "paged: no prefix credit booked")
+    kinds = hold_trace("paged", eng, tr)
+    check(kinds.get("radix.match", (0,))[0] >= 8
+          and kinds.get("radix.insert", (0,))[0] == 8,
+          f"paged: radix spans {kinds}")
     reset()
     with LogitTap() as tap_f:   # the kernel drain's logits, on its twin
         e_eng, e_streams, e_wall, e_cpu = _paged_drain(
@@ -2045,8 +2197,10 @@ def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
     cfg = dataclasses.replace(cfg, n_layers=EVICT_LAYERS)
     params = dict(params, layers=params["layers"][:EVICT_LAYERS])
     reset()
+    ev_tr = Tracer()
     ev_eng, ev, _, _ = _paged_drain(torch, params, cfg, seed,
-                                    max_new=EVICT_NEW, num_pages=EVICT_PAGES)
+                                    max_new=EVICT_NEW, num_pages=EVICT_PAGES,
+                                    tracer=ev_tr)
     ev_launches = {k: fn.launches for k, fn in counters.items()}
     with dispatch.override(kernels=False):
         ev_ref_eng, ev_ref, _, _ = _paged_drain(
@@ -2076,6 +2230,9 @@ def phase_paged_serve(torch, cfg, seed: int, params) -> dict:
     check(ev_firsts, "paged evict: first tokens differ from the plain drain")
     check(ev_same >= PAGED_MIN_SAME, f"paged evict: only {ev_same}/8 streams"
           " identical")
+    hold_trace("paged evict", ev_eng, ev_tr)
+    check(any(e.name == "pool.evict" for e in ev_tr.events),
+          "paged evict: no pool.evict instant")
     reset()
     return launches
 
@@ -2194,9 +2351,9 @@ def phase_chunked(torch, cfg, seed: int, params) -> dict:
         k6_chunks = [0]
         run_wave = eng._run_chunk_wave
 
-        def counted_wave(run_wave=run_wave):
+        def counted_wave(*a, run_wave=run_wave, **kw):
             k0 = kp.gather_pages.launches
-            res = run_wave()
+            res = run_wave(*a, **kw)
             k6_chunks[0] += kp.gather_pages.launches - k0
             return res
 
@@ -2332,6 +2489,7 @@ def phase_spec(torch, cfg, seed: int, params) -> dict:
     from repro_torch.kernels import paged_attn as kpa
     from repro_torch.kernels import sampling as ks
     from repro_torch.kernels import timefloats_matmul as km
+    from repro_torch.obs.trace import Tracer
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.spec import SpecConfig
 
@@ -2364,7 +2522,9 @@ def phase_spec(torch, cfg, seed: int, params) -> dict:
         if draft == "ngram":
             for fn in counters.values():
                 fn.launches = 0
-            eng = Engine(params, cfg, spec=SpecConfig(k=SPEC_K), **kw)
+            tr = Tracer()
+            eng = Engine(params, cfg, spec=SpecConfig(k=SPEC_K), tracer=tr,
+                         **kw)
             torch.cuda.reset_peak_memory_stats()
             got, wall, _, calls, most = _drive(
                 torch, eng, _motif_requests(cfg, seed, 8, 16))
@@ -2372,6 +2532,12 @@ def phase_spec(torch, cfg, seed: int, params) -> dict:
             graph_note(what, eng, torch)
             summary(what, eng, _report(what, eng, got, wall, calls, most,
                                        launches), wall)
+            # The verify spans' accepted/rejected pJ fold to the twin's
+            # speculative split exactly (validate_trace).
+            hold_trace(what, eng, tr)
+            hw = eng.hw_telemetry()
+            check(hw["spec_rejected_pj"] > 0, f"{what}: no rejected pJ "
+                  "booked")
             graph = (snap(eng), got, launches)
             out = launches
         # The eager drain: the ngram graph drain's twin (its logits and K4
@@ -2465,12 +2631,14 @@ def phase_spec(torch, cfg, seed: int, params) -> dict:
     return out
 
 def train_drain(torch, step_fn, state, pipe, steps: int,
-                ckpt=None, ckpt_every: int = 10**9, hw_monitor=None):
+                ckpt=None, ckpt_every: int = 10**9, hw_monitor=None,
+                **obs):
     """``run_loop`` from ``state`` to step ``steps``; returns the final
     state and a row per step: loss, grad norm, wall and host CPU seconds,
     K1 and K2 launches (a replay adds what its capture recorded), and with
     ``hw_monitor`` the twin's step energy (uJ) and cumulative cell
-    writes."""
+    writes. ``obs`` are run_loop's tracer, metrics registry and health
+    monitor."""
     from repro_torch.kernels import timefloats_matmul as km
     from repro_torch.train.trainer import LoopConfig, run_loop
 
@@ -2486,7 +2654,7 @@ def train_drain(torch, step_fn, state, pipe, steps: int,
     prev = {"k1": 0, "k2": 0, "cpu": time.process_time()}
     final, _ = run_loop(state, step_fn, pipe.batch_at, LoopConfig(
         total_steps=steps, log_every=1, ckpt_every=ckpt_every,
-        ckpt_dir=ckpt), on_metrics=on_metrics, hw_monitor=hw_monitor)
+        ckpt_dir=ckpt), on_metrics=on_metrics, hw_monitor=hw_monitor, **obs)
     rows = []
     for m in seen:
         rows.append({"loss": m["loss"], "grad_norm": m["grad_norm"],
@@ -2646,7 +2814,15 @@ def phase_train(torch, cfg, seed: int) -> dict:
           f"{s.write_energy_pj * 1e-6:.3f}), {s.cells_written} cell "
           f"writes/step", flush=True)
 
-    # The main path: the graph drain (3 steps, checkpoints at 2 and 3).
+    # The main path: the graph drain (3 steps, checkpoints at 2 and 3),
+    # traced, with a metrics registry and a health monitor.
+    from repro_torch.obs import export
+    from repro_torch.obs.health import HealthMonitor
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+
+    tr, reg = Tracer(), MetricsRegistry()
+    hm = HealthMonitor(tracer=tr)
     with tempfile.TemporaryDirectory() as ckpt:
         peak_reset(torch)
         ks.sample.launches = 0
@@ -2654,7 +2830,8 @@ def phase_train(torch, cfg, seed: int) -> dict:
         step_g = tsl.make_train_step(cfg, tcfg)
         final, rows_g = train_drain(torch, step_g, state0, pipe, TRAIN_STEPS,
                                     ckpt=ckpt, ckpt_every=2,
-                                    hw_monitor=monitors[0])
+                                    hw_monitor=monitors[0], tracer=tr,
+                                    metrics_registry=reg, health=hm)
         wall = time.monotonic() - t0
         peak_g = torch.cuda.max_memory_allocated()
         launches = {"K1": sum(r["K1"] for r in rows_g),
@@ -2665,6 +2842,33 @@ def phase_train(torch, cfg, seed: int) -> dict:
         print_rows("train (graphs)", rows_g)
         print(f"train: {TRAIN_STEPS} steps + checkpoints in {wall:.2f}s; "
               f"launches {launches}", flush=True)
+        steps = [e for e in tr.events if e.name == "train.step"]
+        kinds = span_kinds(tr)
+        problems = export.validate_trace(export.chrome_payload(
+            tr, metadata={"hw": monitors[0].summary()}), ("train.step",))
+        print("train: trace spans by kind (count, host s): " + ", ".join(
+            f"{k} {n} {t:.4f}" for k, (n, t) in sorted(kinds.items()))
+            + f"; train_steps {reg.get('train_steps').value:g}, "
+            f"train_step_s count {reg.get('train_step_s').count}, "
+            f"hw_tile_writes_max {reg.get('hw_tile_writes_max').value:g}, "
+            f"hw_endurance_frac {reg.get('hw_endurance_frac').value:.3g}; "
+            f"health series {sorted(hm.series)}; validate_trace "
+            f"{problems or 'ok'}", flush=True)
+        check(len(steps) == TRAIN_STEPS and [e.args["loss"] for e in steps]
+              == [r["loss"] for r in rows_g], f"train: train.step spans "
+              f"{[e.args for e in steps]}")
+        check(not problems and tr.open_spans == 0 and tr.dropped == 0,
+              f"train: trace problems {problems}")
+        check(reg.get("train_steps").value == TRAIN_STEPS
+              and reg.get("train_step_s").count == TRAIN_STEPS,
+              "train: registry steps")
+        check(reg.get("hw_tile_writes_max").value == TRAIN_STEPS
+              and any(m.labels for m in reg.collect()
+                      if m.name == "hw_tile_read_chunks"),
+              "train: the per-tile wear gauges")
+        check(hm.series["train.step_s"].n == TRAIN_STEPS
+              and list(hm.series["hw.tile_write_rate"].ring)
+              == [1.0] * TRAIN_STEPS, "train: health series")
         want = snapshot(torch, final, "cuda")
         mgr = CheckpointManager(ckpt)
         check(mgr.all_steps() == [2, TRAIN_STEPS],

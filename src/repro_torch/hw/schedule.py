@@ -25,8 +25,8 @@ run. ``HwMonitor`` adapts the twin to the training loop
 (``train/trainer.run_loop(hw_monitor=)``); ``ServeEnergyModel`` to the
 serving engine (per-request pJ attribution and slot-utilization
 telemetry); ``AdmissionCost`` scores the scheduler's ``policy="cost"``.
-The reference's ``export_gauges`` methods wait for the port's metrics
-registry (the observability slice).
+``TileWearBook.export_gauges`` and ``HwMonitor.export_gauges`` write the
+wear books into an ``obs.metrics.MetricsRegistry``.
 """
 from __future__ import annotations
 
@@ -288,6 +288,22 @@ class TileWearBook:
                                         / hw_energy.ENDURANCE_WRITES),
         }
 
+    def export_gauges(self, registry, prefix: str = "hw_tile") -> None:
+        """Labeled per-leaf gauges into an `obs.metrics.MetricsRegistry`:
+        ``{prefix}_writes_max{leaf=...}`` / ``{prefix}_read_chunks{leaf=...}``
+        plus unlabeled inventory totals."""
+        registry.gauge(f"{prefix}s_tracked").set(float(self.n_tiles))
+        registry.gauge(f"{prefix}_writes_max").set(float(self.writes_max))
+        registry.gauge(f"{prefix}_writes_sum").set(float(self.writes_sum))
+        registry.gauge(f"{prefix}_read_chunks_sum").set(self.reads_sum)
+        for key, start, stop in self.spans:
+            if stop <= start:
+                continue
+            registry.gauge(f"{prefix}_writes_max", leaf=key).set(
+                float(self.writes[start:stop].max()))
+            registry.gauge(f"{prefix}_read_chunks", leaf=key).set(
+                float(self.reads[start:stop].sum()))
+
 
 # ---------------------------------------------------------------------------
 # Trainer telemetry.
@@ -388,6 +404,12 @@ class HwMonitor:
             "tile_reads_sum": self.wear.reads_sum,
             "tiles_tracked": float(self.wear.n_tiles),
         }
+
+    def export_gauges(self, registry) -> None:
+        """Per-tile wear gauges into an `obs.metrics.MetricsRegistry`."""
+        self.wear.export_gauges(registry)
+        registry.gauge("hw_endurance_frac").set(
+            self.writes_per_tile / hw_energy.ENDURANCE_WRITES)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,22 @@ energy first (the hw twin's ``AdmissionCost``); ``--wear-weight`` adds a
 wear surcharge read from a ``HwMonitor`` pre-aged by ``--wear-prior-steps``
 optimizer steps. At ``--quant timefloats`` the report ends with the twin's
 energy books: total and idle uJ, slot utilization, pJ per token (p50) and,
-paged, the prefix credit. The reference's ``--engine legacy``, tracing,
-metrics and health wait for the slices that port them.
+paged, the prefix credit. The report also prints the metrics registry's
+TTFT and ITL percentiles (log-bucket upper bounds).
+
+Observability (DESIGN.md §11, §13): ``--trace-out PATH`` writes the
+drain's Chrome/Perfetto trace (the energy books embedded as its
+metadata, checked by ``obs.export.validate_trace``), ``--metrics-out
+PATH`` the registry (``.json`` a flat dict, else Prometheus text),
+``--health`` runs the drift detectors and the p95 TTFT/ITL SLOs
+(``--slo-ttft-p95``, ``--slo-itl-p95``), ``--inject-lag STEP:SECONDS``
+sleeps before every step from STEP on (a latency regression the
+detectors must catch) and ``--expect-alert`` exits 1 unless an alert
+fired. Spans are host wall-clock: on the card a step's spans time its
+launches, and its device work shows up in ``host_transfer``.
+``python -m repro_torch.launch.obs_report TRACE --metrics METRICS
+--validate`` summarizes and re-checks the written files. The reference's
+``--engine legacy`` waits for the slice that ports the legacy engine.
 """
 import argparse
 import dataclasses
@@ -64,6 +78,27 @@ def main(argv=None):
     ap.add_argument("--wear-prior-steps", type=int, default=0,
                     help="pre-age the wear monitor by this many optimizer "
                          "steps before serving (a fleet mid-life chip)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Perfetto/Chrome trace-event JSON of the "
+                         "drain (load at ui.perfetto.dev)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics registry snapshot (.json = "
+                         "flat dict, else Prometheus text)")
+    ap.add_argument("--trace-capacity", type=int, default=1 << 16,
+                    help="tracer ring size; overflow voids the trace's "
+                         "energy certification")
+    ap.add_argument("--health", action="store_true",
+                    help="streaming drift detectors + SLO burn report")
+    ap.add_argument("--slo-ttft-p95", type=float, default=5.0,
+                    help="p95 TTFT objective in seconds")
+    ap.add_argument("--slo-itl-p95", type=float, default=1.0,
+                    help="p95 ITL objective in seconds")
+    ap.add_argument("--inject-lag", default=None, metavar="STEP:SECONDS",
+                    help="sleep SECONDS before every engine step from step "
+                         "STEP on — a synthetic latency regression the "
+                         "drift detector must catch")
+    ap.add_argument("--expect-alert", action="store_true",
+                    help="exit 1 unless at least one health alert fired")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--graphs", action=argparse.BooleanOptionalAction,
                     default=None,
@@ -87,6 +122,9 @@ def main(argv=None):
     from repro_torch.configs import get_config, reduced_for_smoke
     from repro_torch.core.timefloats import TFConfig
     from repro_torch.models import model as M
+    from repro_torch.obs.export import (validate_health, validate_trace,
+                                        write_chrome_trace, write_metrics)
+    from repro_torch.obs.trace import Tracer
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.request import Request, percentile
     from repro_torch.serve.spec import SpecConfig
@@ -118,13 +156,22 @@ def main(argv=None):
         if args.wear_prior_steps:
             wear_monitor.resume_at(args.wear_prior_steps)
         wear_endurance = lambda: wear_monitor.summary()["endurance_frac"]
+    tracer = Tracer(capacity=args.trace_capacity) if args.trace_out else None
+    hm = None
+    slos = ()
+    if args.health:
+        from repro_torch.obs.health import HealthMonitor, default_serve_slos
+
+        hm = HealthMonitor(tracer=tracer)
+        slos = default_serve_slos(args.slo_ttft_p95, args.slo_itl_p95)
     eng = Engine(params, cfg, slots=args.slots, max_len=args.max_len,
                  seed=args.seed, paged=args.paged, page_size=args.page_size,
                  chunk_tokens=args.chunk_tokens or None,
                  spec=SpecConfig(k=args.spec_k) if args.spec else None,
                  device=device, graphs=args.graphs, sched=args.sched,
                  wear_weight=args.wear_weight,
-                 wear_endurance=wear_endurance)
+                 wear_endurance=wear_endurance, tracer=tracer, health=hm,
+                 slos=slos)
     rng = np.random.default_rng(args.seed)
     shared = rng.integers(0, cfg.vocab_size,
                           size=args.prefix_len).astype(np.int32)
@@ -143,7 +190,23 @@ def main(argv=None):
                            max_new_tokens=args.max_new,
                            temperature=args.temperature))
     t0 = time.time()
-    done = eng.run_until_drained()
+    if args.inject_lag:
+        # Sleeping between steps inflates the inter-token latency (its
+        # basis is the previous step's token time): the series the drift
+        # detector watches.
+        lag_step, lag_s = args.inject_lag.split(":")
+        lag_step, lag_s = int(lag_step), float(lag_s)
+        done, n_steps = [], 0
+        while (eng.active or eng._chunking or eng.queue) and n_steps < 10_000:
+            if n_steps >= lag_step:
+                time.sleep(lag_s)
+            done.extend(eng.step())
+            n_steps += 1
+        if n_steps >= 10_000:
+            print("--inject-lag: the drain did not end", file=sys.stderr)
+            return 1
+    else:
+        done = eng.run_until_drained()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -159,6 +222,19 @@ def main(argv=None):
           f"steps {eng.steps} | compiles: prefill {traces['prefill_total']}, "
           f"decode {traces['decode_total']} | host transfers "
           f"{eng.host_transfers}")
+
+    def _hp(name: str, p: float) -> float:
+        h = eng.metrics.get(name)
+        return h.percentile(p) if h is not None and h.count else 0.0
+
+    # Histogram percentiles from the always-on registry (log-bucket upper
+    # bounds, within ~9% above the sample).
+    print("metrics: ttft "
+          + " ".join(f"p{p} {_hp('serve_ttft_s', p) * 1e3:.1f}ms"
+                     for p in (50, 95, 99))
+          + " | itl "
+          + " ".join(f"p{p} {_hp('serve_itl_s', p) * 1e3:.2f}ms"
+                     for p in (50, 95, 99)))
     graphs = eng.graphs
     print(f"graphs={'on' if graphs.capture else 'off'}: "
           f"{len(graphs.counts)} step callables "
@@ -187,9 +263,53 @@ def main(argv=None):
         print(f"wear admission: weight {args.wear_weight:g}, endurance "
               f"frac {s['endurance_frac']:.3g} "
               f"({int(s['writes_per_tile'])} writes/tile pre-aged)")
+        if args.metrics_out:
+            wear_monitor.export_gauges(eng.metrics)
+    health_doc = None
+    if hm is not None:
+        from repro_torch.obs.health import export_slo_gauges
+
+        rep = hm.report(slos=slos, metrics=eng.metrics)
+        export_slo_gauges(eng.metrics, rep.slos)  # before write_metrics
+        health_doc = rep.to_dict()
+        print(f"health: {len(rep.alerts)} alerts over "
+              f"{len(rep.series)} series "
+              f"({', '.join(sorted(rep.series))})")
+        for a in rep.alerts:
+            print(f"  ALERT {a.series} {a.direction} at sample {a.sample}: "
+                  f"value {a.value:.4g} vs baseline {a.baseline:.4g} "
+                  f"(z={a.z:.1f}, {a.kind} score {a.score:.1f})")
+        for slo in rep.slos:
+            print(f"  SLO {slo.name}: {slo.objective}({slo.metric}) "
+                  f"{slo.observed:.4g} vs target {slo.target:g} — "
+                  f"burn rate {slo.burn_rate:.2f}, "
+                  f"budget {slo.budget_remaining:+.2f}, "
+                  f"{'OK' if slo.ok else 'VIOLATED'}")
+        if args.expect_alert and not rep.alerts:
+            print("expected a health alert; none fired", file=sys.stderr)
+            return 1
+    if args.metrics_out:
+        write_metrics(args.metrics_out, eng.metrics)
+        print(f"metrics written to {args.metrics_out}")
+    if args.trace_out:
+        meta = {"hw": hw, "engine": "fused", "arch": args.arch}
+        if health_doc is not None:
+            meta["health"] = health_doc
+        payload = write_chrome_trace(args.trace_out, tracer, metadata=meta)
+        problems = validate_trace(payload)
+        if health_doc is not None:
+            problems += validate_health(payload)
+        print(f"trace written to {args.trace_out} "
+              f"({payload['metadata']['events']} events, "
+              f"{payload['metadata']['dropped']} dropped)")
+        for p in problems:
+            print(f"trace INVALID: {p}", file=sys.stderr)
+        if problems:
+            return 1
     if args.chunk_tokens:
         print(f"chunked: {eng.chunk_waves} chunk waves "
-              f"(chunk_tokens={args.chunk_tokens})")
+              f"(chunk_tokens={args.chunk_tokens}, sched={args.sched}), "
+              f"{eng.decode_stall_steps} stalled steps")
     if args.spec:
         print(f"spec: k={args.spec_k} accept rate "
               f"{st['spec_accept_rate']:.1%} ({int(st['spec_accepted'])}/"

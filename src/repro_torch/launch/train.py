@@ -15,9 +15,12 @@ takes no graphs. With ``--quant timefloats`` the hw twin's ``HwMonitor``
 (placement plus a meta-device census of the loss) books each step's
 projected crossbar energy and cell writes; the log lines carry the step's
 uJ, the end prints the run's totals, and the final checkpoint's metadata
-holds them under ``hw``. The reference's ``--mesh``, ``--fake-devices``,
-``--trace-out`` and ``--metrics-out`` wait for the parallel and
-observability slices.
+holds them under ``hw``. ``--trace-out PATH`` writes the run's
+Chrome/Perfetto trace (``train.*`` spans, the twin's totals as its
+metadata) and ``--metrics-out PATH`` the metrics registry (``.json`` a
+flat dict, else Prometheus text), with the twin's per-tile wear gauges.
+The reference's ``--mesh`` and ``--fake-devices`` wait for the parallel
+slice.
 """
 import argparse
 import dataclasses
@@ -47,6 +50,12 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=200)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Perfetto/Chrome trace-event JSON of the "
+                         "run (load at ui.perfetto.dev)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics registry snapshot (.json = "
+                         "flat dict, else Prometheus text)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--graphs", action=argparse.BooleanOptionalAction,
                     default=None, help="capture each batch shape's step into "
@@ -116,11 +125,20 @@ def main(argv=None):
         print(f"step {step:5d} loss {m['loss']:.4f} gnorm "
               f"{m['grad_norm']:.2f} {m['step_s']:.2f}s{hw}", flush=True)
 
+    tracer = registry = None
+    if args.trace_out or args.metrics_out:
+        from repro_torch.obs.metrics import MetricsRegistry
+        from repro_torch.obs.trace import Tracer
+
+        tracer = Tracer() if args.trace_out else None
+        registry = MetricsRegistry()
+
     loop = LoopConfig(total_steps=args.steps, log_every=args.log_every,
                       ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
     t0 = time.monotonic()
     state, report = run_loop(state, step_fn, pipe.batch_at, loop,
-                             on_metrics=on_metrics, hw_monitor=hw_monitor)
+                             on_metrics=on_metrics, hw_monitor=hw_monitor,
+                             tracer=tracer, metrics_registry=registry)
     last = report.losses[-1] if report.losses else float("nan")
     print(f"done: steps={report.steps_run} resumed_from="
           f"{report.resumed_from} stragglers={report.straggler_events} "
@@ -131,6 +149,20 @@ def main(argv=None):
               f"{report.hw['total_cell_writes']:.3g} cell writes, "
               f"endurance used {report.hw['endurance_frac']:.2e}",
               flush=True)
+    if args.metrics_out:
+        from repro_torch.obs.export import write_metrics
+
+        write_metrics(args.metrics_out, registry)
+        print(f"metrics written to {args.metrics_out}")
+    if args.trace_out:
+        from repro_torch.obs.export import write_chrome_trace
+
+        payload = write_chrome_trace(
+            args.trace_out, tracer,
+            metadata={"hw": report.hw, "arch": args.arch})
+        print(f"trace written to {args.trace_out} "
+              f"({payload['metadata']['events']} events, "
+              f"{payload['metadata']['dropped']} dropped)")
     return 0
 
 

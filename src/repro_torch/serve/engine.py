@@ -87,8 +87,23 @@ reference's token for token as greedy ones do.
   static input buffers; the engine state and the cache are the graphs'
   static tensors, updated in place. Admission, page tables, scratch pages
   and the step's one device->host copy stay outside the graphs.
-
-Not ported: tracing, metrics and health (the observability slice).
+- **Observability** (DESIGN.md §11, §13): pass ``tracer`` (an
+  ``obs.trace.Tracer``) for the reference's span taxonomy: ``engine.step``,
+  ``sched.pick``, ``prefill.chunk_wave`` and ``prefill.wave[<b>]``,
+  ``decode_and_sample`` / ``decode_and_verify``, ``host_transfer``,
+  ``radix.match`` / ``radix.insert``, ``pool.evict`` instants, a
+  ``compile[<name>]`` span per step program built, and counter tracks for
+  the queue, the pool and the twin's pJ. The prefill and decode spans carry
+  the twin's attributed pJ as the same float expressions the books add, so
+  their event-order folds equal ``hw_telemetry()`` exactly; a decode span
+  is annotated after it closes, once the done masks are applied. Spans
+  are host wall-clock and their args come from host mirrors only: on the
+  card a step span times the replay's launch, and the device work lands in
+  ``host_transfer``. The metrics registry (``metrics`` or a private one)
+  is always on; ``health`` (an ``obs.health.HealthMonitor``) watches the
+  step wall, queue, TTFT/ITL, pool, pJ-per-token and acceptance series,
+  and ``slos`` add burn-rate keys to ``stats()``. The default no-op tracer
+  leaves streams, ``stats()`` and launches bit-identical.
 """
 from __future__ import annotations
 
@@ -105,6 +120,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.hw.schedule import StepBudget
 from repro_torch.kernels.sampling import sample_tokens
 from repro_torch.models import model as model_lib
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NOOP, NOOP_SPAN, TID_SERVE
 from repro_torch.serve.kvpool import PagePool
 from repro_torch.serve.radix import RadixCache
 from repro_torch.serve.request import (Finished, Request, StepGraphs,
@@ -114,6 +131,11 @@ from repro_torch.serve.sched import Scheduler
 from repro_torch.serve.spec import SpecConfig, chain_accept, propose_ngram
 
 Tensor = torch.Tensor
+
+# Prefill waves longer than this count as decode stalls when launched
+# beside active decode slots (``decode_stall_steps``); a chunked engine's
+# own chunk_tokens overrides it.
+STALL_REF_TOKENS = 64
 
 
 class EngineState(NamedTuple):
@@ -168,7 +190,9 @@ class Engine:
     captures every step callable into a CUDA graph at its first call and
     replays it after; ``graphs=False`` runs the same callables eagerly, and
     a CPU engine cannot take graphs. ``track_energy`` keeps the hw twin's
-    energy books (a no-op unless ``cfg.quant == "timefloats"``)."""
+    energy books (a no-op unless ``cfg.quant == "timefloats"``).
+    ``tracer``, ``metrics``, ``health`` and ``slos`` are the observability
+    hooks (module docstring)."""
 
     def __init__(self, params, cfg: ModelConfig, *, slots: int = 8,
                  max_len: int = 512, eos_id: Optional[int] = None,
@@ -179,8 +203,11 @@ class Engine:
                  spec: Optional[SpecConfig] = None, device="cuda",
                  graphs: Optional[bool] = None, track_energy: bool = True,
                  sched: str = "fcfs", budget: Optional[StepBudget] = None,
-                 wear_weight: float = 0.0, wear_endurance=None):
+                 wear_weight: float = 0.0, wear_endurance=None,
+                 tracer=None, metrics: Optional[MetricsRegistry] = None,
+                 health=None, slos=None):
         self.cfg = cfg
+        self.tracer = tracer or NOOP
         self.params = params
         self.slots = slots
         self.max_len = max_len
@@ -190,7 +217,8 @@ class Engine:
         self.key = rnd.PRNGKey(seed, self.device)
         if graphs is None:
             graphs = self.device.type == "cuda"
-        self.graphs = StepGraphs(self.device, capture=graphs)
+        self.graphs = StepGraphs(self.device, capture=graphs,
+                                 tracer=self.tracer)
         self.decode_launches = 0
         self._step_cap: Optional[int] = None   # the last decode's KV cap
         self.paged = paged
@@ -222,6 +250,7 @@ class Engine:
             if not model_lib.paged_supported(cfg):
                 raise ValueError(f"chunked prefill: {cfg.name} is not an "
                                  "attention family")
+        self._stall_ref = self.chunk_tokens or STALL_REF_TOKENS
         if paged:
             if not model_lib.paged_supported(cfg):
                 raise ValueError(f"paged cache: {cfg.name} is not a "
@@ -292,6 +321,7 @@ class Engine:
         self.steps = 0
         self.host_transfers = 0
         self.chunk_waves = 0
+        self.decode_stall_steps = 0
         # (uid, offset, n_tokens) per chunk-wave row: the offsets tile each
         # chunked prompt once, in order.
         self.chunk_log: List[Tuple[int, int, int]] = []
@@ -299,6 +329,43 @@ class Engine:
         self._new_tokens = 0
         self._latencies: List[float] = []
         self._ttfts: List[float] = []
+
+        # The health layer; it may be attached after construction, so the
+        # delta trackers start unconditionally.
+        self.health = health
+        self.slos = tuple(slos) if slos else ()
+        self._h_ttft_count = 0
+        self._h_ttft_sum = 0.0
+        self._h_itl_count = 0
+        self._h_itl_sum = 0.0
+        self._h_pj = 0.0
+        self._h_spec_proposed = 0
+        self._h_spec_accepted = 0
+
+        # The metrics registry, always on and pre-bound, so hot paths pay a
+        # method call, not a lookup.
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        m = self.metrics
+        self._m_steps = m.counter("serve_steps")
+        self._m_finished = m.counter("serve_finished")
+        self._m_new_tokens = m.counter("serve_new_tokens")
+        self._m_submitted = m.counter("serve_submitted")
+        self._m_queue_depth = m.gauge("serve_queue_depth")
+        self._m_ttft = m.histogram("serve_ttft_s")
+        self._m_itl = m.histogram("serve_itl_s")
+        self._m_latency = m.histogram("serve_latency_s")
+        self._m_chunk_rows = m.histogram("serve_chunk_wave_rows")
+        self._m_stalls = m.counter("serve_decode_stall_steps")
+        self._m_decode_launches = m.counter("serve_decode_launches")
+        if paged:
+            self._m_pool_in_use = m.gauge("serve_pool_pages_in_use")
+            self._m_radix_hits = m.counter("serve_radix_hits")
+            self._m_radix_hit_tokens = m.counter("serve_radix_hit_tokens")
+            self._m_evictions = m.counter("serve_pool_evictions")
+        if spec is not None:
+            self._m_spec_proposed = m.counter("serve_spec_proposed")
+            self._m_spec_accepted = m.counter("serve_spec_accepted")
+            self._m_spec_emit = m.histogram("serve_spec_emit_per_slot")
 
     # -- device calls --------------------------------------------------------
     # Each ``_*_fn`` builds a step callable over the engine's persistent
@@ -333,9 +400,11 @@ class Engine:
 
         return fn
 
-    def _prefill_wave(self, sb: int, group):
-        """One pow2-bucket prefill wave, padded to ``slots`` rows. A paged
-        row prefills its prompt from ``skip``, the radix-matched prefix."""
+    def _prefill_wave(self, sb: int, group, sp=NOOP_SPAN):
+        """One pow2-bucket prefill wave, padded to ``slots`` rows, and its
+        admissions. A paged row prefills its prompt from ``skip``, the
+        radix-matched prefix. ``sp`` is the enclosing span; the twin's
+        attributed pJ for the wave lands in its args."""
         slots = self.slots
         tokens = np.zeros((slots, sb), np.int32)
         plens = np.zeros((slots,), np.int32)          # dummy rows: len 0
@@ -361,16 +430,22 @@ class Engine:
                 offs if self.paged else None, ids)
             share = self._hw.on_prefill_wave(pj, len(group),
                                              tokens=slots * sb)
+            sp.set(total_pj=pj, attributed_pj=share * len(group))
             for _, req, _, _ in group:
                 req.energy_pj += share
             if self.paged:
                 self._credit_prefix_hits(group, sb, pj)
+        out = self.graphs.call(f"prefill[{sb}]", self._prefill_fn(),
+                               tokens, plens, offs, ids, temps, budgets, tags)
         if self._spec_model:
             self.graphs.call(f"draft_prefill[{sb}]", self._draft_prefill_fn(),
                              tokens, plens, ids)
-        return self.graphs.call(f"prefill[{sb}]", self._prefill_fn(),
-                                tokens, plens, offs, ids, temps, budgets,
-                                tags)
+        for slot, req, skip, pages in group:
+            self.active[slot] = req
+            if self.paged:
+                self._count_admit(slot, req, skip, pages)
+                self._insert_radix(req, pages)
+        return out
 
     # -- the hw twin's census programs: the model calls of each step
     # callable, which ``capture_census`` runs on meta tensors ---------------
@@ -398,10 +473,11 @@ class Engine:
         model_lib.verify_step(params, cache, tokens, self.cfg, kv_cap=cap,
                               fused_paged=self.fused_decode)
 
-    def _book_decode(self, cap: Optional[int], emit) -> None:
+    def _book_decode(self, cap: Optional[int], emit, sp=NOOP_SPAN) -> None:
         """Book the step's decode (or verify) energy, after the waves'
         done masks: a request that finished at prefill takes no decode
-        share."""
+        share. The attributed pJ (and a verify's accepted/rejected split)
+        land in the args of the decode span ``sp``, closed by now."""
         hw, slots = self._hw, self.slots
         if hw.decode_step_pj is None:
             depth = 1 if self.spec is None else self.spec.k + 1
@@ -413,11 +489,13 @@ class Engine:
         n_act = len(self.active)
         if self.spec is None:
             share = hw.on_decode_step(n_act, tokens=slots)
+            sp.set(attributed_pj=share * n_act)
         else:
             emitted = sum(int(emit[s]) for s in self.active)
-            share, _acc, _rej, _tot = hw.on_spec_step(
+            share, acc, rej, step_pj = hw.on_spec_step(
                 n_act, emitted, self.spec.k + 1,
                 tokens=slots * (self.spec.k + 1))
+            sp.set(attributed_pj=step_pj, accepted_pj=acc, rejected_pj=rej)
         for req in self.active.values():
             req.energy_pj += share
 
@@ -460,12 +538,14 @@ class Engine:
 
         return fn
 
-    def _run_chunk_wave(self):
+    def _run_chunk_wave(self, sp=NOOP_SPAN):
         """Advance every mid-prefill slot by one chunk in ONE fixed-shape
         ``(slots, chunk_tokens)`` wave. Final-chunk rows sample their first
         token and join ``active``; mid-chunk rows admit nothing
         (``admit_ids`` holds the drop sentinel there). Returns the rows
-        that admitted, [(row, slot, request)], and the wave's outputs."""
+        that admitted, [(row, slot, request)], and the wave's outputs.
+        ``sp`` is the enclosing span; the twin's attributed pJ for the
+        wave lands in its args."""
         C, slots = self.chunk_tokens, self.slots
         tokens = np.zeros((slots, C), np.int32)
         tots = np.zeros((slots,), np.int32)
@@ -492,13 +572,16 @@ class Engine:
                 budgets[r] = req.max_new_tokens
                 tags[r] = req.uid & 0x7FFFFFFF
                 finals.append((r, slot, req))
+        rows = len(self._chunking)
+        sp.set(rows=rows, finals=len(finals))
+        self._m_chunk_rows.observe(float(rows))
         if self._hw is not None:
             mode = "paged" if self.paged else "dense"
             pj = self._hw.prefill_bucket_pj(
                 ("chunk", C, slots, mode), self._census_prefill, self.params,
                 self.state.cache, tokens, tots, offs, wids)
-            share = self._hw.on_prefill_wave(pj, len(self._chunking),
-                                             tokens=slots * C)
+            share = self._hw.on_prefill_wave(pj, rows, tokens=slots * C)
+            sp.set(total_pj=pj, attributed_pj=share * rows)
             for req in self._chunking.values():
                 req.energy_pj += share
         out = self.graphs.call(f"prefill[c{C}]", self._chunk_wave_fn(),
@@ -609,18 +692,22 @@ class Engine:
 
     def _decode_step(self):
         """The step's decode (or chain verify) through its callable, keyed
-        by the host-picked KV-extent cap (kept for the energy books)."""
+        by the host-picked KV-extent cap (kept for the energy books).
+        Returns its outputs and its span, which the energy books annotate
+        after it closes."""
         cap = self._step_cap = self._decode_cap()
         self.decode_launches += 1
-        base = "decode_and_sample" if self.spec is None else \
-            "decode_and_verify"
-        name = base if cap is None else f"{base}[c{cap}]"
+        self._m_decode_launches.inc()
         if self.spec is None:
-            return self.graphs.call(name, self._decode_fn(cap))
-        if self._spec_model:
-            return self.graphs.call(name, self._verify_fn(cap))
-        return self.graphs.call(name, self._verify_fn(cap),
-                                self._build_drafts())
+            base, fn, args = "decode_and_sample", self._decode_fn(cap), ()
+        else:
+            base, fn = "decode_and_verify", self._verify_fn(cap)
+            args = () if self._spec_model else (self._build_drafts(),)
+        name = base if cap is None else f"{base}[c{cap}]"
+        with self.tracer.span(base, "serve.decode", tid=TID_SERVE, cap=cap,
+                              active=len(self.active)) as sp:
+            out = self.graphs.call(name, fn, *args)
+        return out, sp
 
     def _decode_cap(self) -> Optional[int]:
         """KV-extent cap (tokens) for this step's fused paged decode, or
@@ -734,12 +821,23 @@ class Engine:
                 "request needs more pages than the pool holds "
                 f"(prompt {plen} + budget {req.max_new_tokens}, "
                 f"{self.pool.total_pages} pages)")
-        pages, skip = self.radix.match(req.prompt)
+        tr = self.tracer
+        with tr.span("radix.match", "serve.radix", tid=TID_SERVE,
+                     uid=req.uid) as sp:
+            pages, skip = self.radix.match(req.prompt)
+            sp.set(skip=skip, pages=len(pages))
         # all_or_nothing: an admission that fails anyway must not destroy
         # cached prefixes the next requests would reuse.
+        ev0 = self.radix.evictions
         fresh = self.pool.alloc(
             need - len(pages),
             evict=lambda k: self.radix.evict(k, all_or_nothing=True))
+        if self.radix.evictions > ev0:
+            n_ev = self.radix.evictions - ev0
+            self._m_evictions.inc(n_ev)
+            if tr.enabled:
+                tr.instant("pool.evict", "serve.radix", tid=TID_SERVE,
+                           evicted=n_ev)
         if fresh is None:
             self.radix.release(pages)
             return None
@@ -773,6 +871,8 @@ class Engine:
         self._prefix_tokens += skip
         if skip:
             self._prefix_hits += 1
+            self._m_radix_hits.inc()
+            self._m_radix_hit_tokens.inc(skip)
 
     def _insert_radix(self, req: Request, pages) -> None:
         """Index the prompt's full pages in the radix tree. A chunked
@@ -780,8 +880,11 @@ class Engine:
         K/V been written."""
         n_full = len(req.prompt) // self.page_size
         if n_full:
-            self.radix.insert(req.prompt[: n_full * self.page_size],
-                              pages[:n_full])
+            with self.tracer.span("radix.insert", "serve.radix",
+                                  tid=TID_SERVE, uid=req.uid,
+                                  pages=n_full):
+                self.radix.insert(req.prompt[: n_full * self.page_size],
+                                  pages[:n_full])
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -795,6 +898,8 @@ class Engine:
         req.skipped = 0
         req.queued_step = self.sched.now
         self.queue.append(req)
+        self._m_submitted.inc()
+        self._m_queue_depth.set(float(len(self.queue)))
 
     def step(self) -> List[Finished]:
         """One engine step: scheduler admission into free slots (with page
@@ -802,6 +907,17 @@ class Engine:
         prefill wave per length bucket, one fused decode_and_sample (or
         chain verify), and a single device->host copy of the new tokens
         and done masks."""
+        tr = self.tracer
+        with tr.span("engine.step", "serve", tid=TID_SERVE) as sp:
+            out = self._step_impl()
+            if tr.enabled:
+                sp.set(step=self.sched.now, finished=len(out),
+                       active=len(self.active))
+            return out
+
+    def _step_impl(self) -> List[Finished]:
+        tr = self.tracer
+        t_step0 = time.monotonic() if self.health is not None else 0.0
         had_active = bool(self.active)
         C = self.chunk_tokens
         tracker = self.sched.begin_step()
@@ -812,8 +928,13 @@ class Engine:
             tracker.spend(cont, self.sched.cost.prefill_pj(cont))
         free = [i for i in range(self.slots)
                 if i not in self.active and i not in self._chunking]
-        picks = self.sched.pick(self.queue, len(free), tracker,
-                                self._try_reserve if self.paged else None)
+        with tr.span("sched.pick", "serve.sched", tid=TID_SERVE) as sp_pick:
+            picks = self.sched.pick(self.queue, len(free), tracker,
+                                    self._try_reserve if self.paged
+                                    else None)
+            sp_pick.set(free=len(free), picked=len(picks),
+                        queued=len(self.queue))
+        self._m_queue_depth.set(float(len(self.queue)))
         admits, chunked = [], []
         for req, (skip, pages) in picks:
             assert len(req.prompt) < self.max_len, \
@@ -832,37 +953,42 @@ class Engine:
         # waves: ([(row, slot, request) sampled], (tokens, done)).
         waves = []
         if self._chunking:
-            waves.append(self._run_chunk_wave())
+            with tr.span("prefill.chunk_wave", "serve.prefill",
+                         tid=TID_SERVE, chunk=C) as sp_cw:
+                waves.append(self._run_chunk_wave(sp_cw))
         by_bucket: Dict[int, list] = {}
         for slot, req, skip, pages in admits:
             sb = bucket_for(len(req.prompt) - skip, self.max_len,
                             self.min_bucket)
             by_bucket.setdefault(sb, []).append((slot, req, skip, pages))
+        if had_active and any(sb > self._stall_ref for sb in by_bucket):
+            self.decode_stall_steps += 1
+            self._m_stalls.inc()
         for sb in sorted(by_bucket):
             group = by_bucket[sb]
+            with tr.span(f"prefill.wave[{sb}]", "serve.prefill",
+                         tid=TID_SERVE, bucket=sb, rows=len(group)) as sp_w:
+                out = self._prefill_wave(sb, group, sp_w)
             waves.append(([(r, slot, req) for r, (slot, req, _s, _p)
-                           in enumerate(group)],
-                          self._prefill_wave(sb, group)))
-            for slot, req, skip, pages in group:
-                self.active[slot] = req
-                if self.paged:
-                    self._count_admit(slot, req, skip, pages)
-                    self._insert_radix(req, pages)
+                           in enumerate(group)], out))
         dec = None
+        dec_sp = NOOP_SPAN
         scratch = None
         sampled = [req for rows, _ in waves for _, _, req in rows]
         if had_active or any(r.max_new_tokens > 1 for r in sampled):
             self.steps += 1
+            self._m_steps.inc()
             if self.spec is not None and self.paged:
                 scratch = self._attach_scratch_pages()
-            dec = self._decode_step()
+            dec, dec_sp = self._decode_step()
         if not waves and dec is None:
             return []
         # The step's single device->host copy: tokens + done masks (and a
         # verify's emitted counts).
         outs = [o for _, o in waves] + ([dec] if dec is not None else [])
         flat = [t.to(torch.int32).reshape(-1) for o in outs for t in o]
-        host = torch.cat(flat).cpu().numpy()
+        with tr.span("host_transfer", "serve", tid=TID_SERVE):
+            host = torch.cat(flat).cpu().numpy()
         self.host_transfers += 1
         parts, at = [], 0
         for t in flat:
@@ -888,12 +1014,15 @@ class Engine:
                 tok = tok.reshape(self.slots, self.spec.k + 1)
                 emit = parts[2 * len(waves) + 1]
             if self._hw is not None:
-                self._book_decode(self._step_cap, emit)
+                self._book_decode(self._step_cap, emit, dec_sp)
             for slot, req in list(self.active.items()):
                 e = int(emit[slot])
                 if self.spec is not None:
                     self._spec_proposed += self.spec.k
                     self._spec_accepted += max(e - 1, 0)
+                    self._m_spec_proposed.inc(self.spec.k)
+                    self._m_spec_accepted.inc(max(e - 1, 0))
+                    self._m_spec_emit.observe(float(e))
                 self._append_tokens(req, tok[slot, :e], now)
                 if done[slot]:
                     finished.append(self._finish(req, now))
@@ -903,15 +1032,84 @@ class Engine:
             self._release_scratch_pages(scratch)
         if self.paged and freed:
             self._teardown_slots(freed)
+        if self.paged:
+            self._m_pool_in_use.set(float(self.pool.pages_in_use))
+        if tr.enabled:
+            # Counter tracks beside the spans: queue depth, pool occupancy
+            # and the twin's pJ and wear.
+            tr.counter("serve.queue_depth", float(len(self.queue)),
+                       tid=TID_SERVE)
+            if self.paged:
+                tr.counter("pool.occupancy", float(self.pool.pages_in_use),
+                           tid=TID_SERVE)
+            if self._hw is not None:
+                tr.counter("hw.attributed_pj", self._hw.attributed_pj,
+                           tid=TID_SERVE)
+                if self._hw.wear is not None:
+                    tr.counter("hw.tile_read_chunks_max",
+                               self._hw.wear.reads_max, tid=TID_SERVE)
+        if self.health is not None:
+            self._observe_health(t_step0)
         return finished
+
+    def _observe_health(self, t0: float) -> None:
+        """Feed the health monitor one step's deltas (DESIGN.md §13): the
+        TTFT and ITL series are the histograms' per-step (sum, count)
+        delta means, and pJ per token the attributed-pJ delta over the
+        step's emitted tokens (each books one TTFT or ITL sample)."""
+        h = self.health
+        h.observe("serve.step_wall_s", time.monotonic() - t0)
+        h.observe("serve.queue_depth", float(len(self.queue)))
+        d_ttft_n = self._m_ttft.count - self._h_ttft_count
+        d_ttft_s = self._m_ttft.sum - self._h_ttft_sum
+        self._h_ttft_count = self._m_ttft.count
+        self._h_ttft_sum = self._m_ttft.sum
+        if d_ttft_n:
+            h.observe("serve.ttft_s", d_ttft_s / d_ttft_n)
+        d_itl_n = self._m_itl.count - self._h_itl_count
+        d_itl_s = self._m_itl.sum - self._h_itl_sum
+        self._h_itl_count = self._m_itl.count
+        self._h_itl_sum = self._m_itl.sum
+        if d_itl_n:
+            h.observe("serve.itl_s", d_itl_s / d_itl_n)
+        if self.paged:
+            h.observe("serve.pool_occupancy", float(self.pool.pages_in_use))
+        if self._hw is not None:
+            d_pj = self._hw.attributed_pj - self._h_pj
+            self._h_pj = self._hw.attributed_pj
+            d_tok = d_ttft_n + d_itl_n
+            if d_tok:
+                h.observe("serve.pj_per_token", d_pj / d_tok)
+        if self.spec is not None:
+            d_prop = self._spec_proposed - self._h_spec_proposed
+            d_acc = self._spec_accepted - self._h_spec_accepted
+            self._h_spec_proposed = self._spec_proposed
+            self._h_spec_accepted = self._spec_accepted
+            if d_prop:
+                h.observe("serve.spec_accept", d_acc / d_prop,
+                          direction="down")
 
     def _append_tokens(self, req: Request, toks, now: float) -> None:
         """Book the tokens one step emitted for a request (a verify can
-        emit several); its first token stamps TTFT."""
-        if not req.generated:  # TTFT: queue wait + full prefill
+        emit several). A request's first token books TTFT (queue wait and
+        full prefill); every other token books one inter-token latency,
+        the step's wall gap split evenly over its emitted tokens, so a
+        verify's K+1 tokens do not read as one gap."""
+        toks = [int(t) for t in toks]
+        if not toks:
+            return
+        fresh = not req.generated
+        gap = 0.0 if fresh else max(now - req.last_token_t, 0.0)
+        n_itl = len(toks) - 1 if fresh else len(toks)
+        if fresh:
             req.first_token_t = now
             self._ttfts.append(max(now - req.submit_t, 0.0))
-        req.generated.extend(int(t) for t in toks)
+            self._m_ttft.observe(max(now - req.submit_t, 0.0))
+        if n_itl > 0:
+            per = gap / n_itl
+            for _ in range(n_itl):
+                self._m_itl.observe(per)
+        req.generated.extend(toks)
         req.last_token_t = now
 
     def _finish(self, req: Request, now: float) -> Finished:
@@ -920,6 +1118,9 @@ class Engine:
         self._latencies.append(lat)
         self._new_tokens += len(req.generated)
         self._finished_count += 1
+        self._m_latency.observe(lat)
+        self._m_new_tokens.inc(len(req.generated))
+        self._m_finished.inc()
         return Finished(uid=req.uid, tokens=np.asarray(req.generated),
                         energy_pj=req.energy_pj,
                         pj_per_token=req.energy_pj / max(n_tok, 1),
@@ -961,7 +1162,8 @@ class Engine:
         """Throughput/latency aggregates (zero-request safe); on a paged
         engine the pool and radix counters, on a speculative one the
         draft counters, with energy books the twin's telemetry as
-        ``hw_<key>``."""
+        ``hw_<key>``, and with ``slos`` each one's burn rate and verdict."""
+        cc = self.compile_cache_stats()
         out = {
             "steps": float(self.steps),
             "host_transfers": float(self.host_transfers),
@@ -971,8 +1173,11 @@ class Engine:
             "latency_p95_s": percentile(self._latencies, 95),
             "ttft_p50_s": percentile(self._ttfts, 50),
             "ttft_p95_s": percentile(self._ttfts, 95),
-            "chunk_waves": float(self.chunk_waves),
+            "prefill_compiles": float(cc["prefill_total"]),
+            "decode_compiles": float(cc["decode_total"]),
             "decode_launches": float(self.decode_launches),
+            "chunk_waves": float(self.chunk_waves),
+            "decode_stall_steps": float(self.decode_stall_steps),
         }
         if self.paged:
             out.update({
@@ -999,4 +1204,9 @@ class Engine:
         if self._hw is not None:
             out.update({f"hw_{k}": float(v)
                         for k, v in self._hw.telemetry().items()})
+        # Declarative SLOs: only an engine given ``slos`` grows these keys.
+        for spec in self.slos:
+            st = spec.evaluate(self.metrics)
+            out[f"slo_{spec.name}_burn_rate"] = st.burn_rate
+            out[f"slo_{spec.name}_ok"] = float(st.ok)
         return out

@@ -1,8 +1,9 @@
 """Shared serving types (port of ``repro.serve.request``): request and
 finished records, the nearest-rank percentile, :class:`StepGraphs`, the
 counterpart of the reference's ``counting_jit``: an engine's step callables
-built once per static shape and counted, each a captured CUDA graph on the
-card, and :func:`make_serve_energy_model`, the hw twin's serving books."""
+built once per static shape, counted and traced, each a captured CUDA graph
+on the card, and :func:`make_serve_energy_model`, the hw twin's serving
+books."""
 from __future__ import annotations
 
 import contextlib
@@ -12,6 +13,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.obs.trace import NOOP, TID_COMPILE
 
 Tensor = torch.Tensor
 
@@ -170,10 +173,18 @@ class StepGraphs:
       ``generators`` (CUDA ``torch.Generator``s the steps draw from) are
       registered with every graph, so each replay advances their Philox
       offsets as an eager call would.
+
+    With a ``tracer`` (obs/trace), each build of an entry emits one
+    ``compile[<name>]`` span on the compile track, as the reference's
+    ``counting_jit`` does for a trace: on the card it covers the eager
+    warm-up and the capture, on the CPU the entry's first call. A replay,
+    or a later eager call, emits nothing.
     """
 
-    def __init__(self, device, capture: bool, generators: tuple = ()):
+    def __init__(self, device, capture: bool, generators: tuple = (),
+                 tracer=None):
         self.device = torch.device(device)
+        self.tracer = tracer or NOOP
         if capture and self.device.type != "cuda":
             raise ValueError("CUDA graphs need a CUDA engine; a CPU engine "
                              "runs its steps eagerly")
@@ -192,22 +203,31 @@ class StepGraphs:
     def call(self, name: str, fn: Callable[..., tuple], *host) -> tuple:
         entry = self._entries.get(name)
         if not self.capture:
-            if entry is None:
-                entry = self._entries[name] = _Entry(self._buffers(host))
-                self.counts[name] = 1
-            else:
+            if entry is not None:
                 self._load(entry, host)
-            return tuple(fn(*entry.inputs))
+                return tuple(fn(*entry.inputs))
+            t0 = self.tracer.now()
+            entry = self._entries[name] = _Entry(self._buffers(host))
+            self.counts[name] = 1
+            out = tuple(fn(*entry.inputs))
+            self._built(name, t0)
+            return out
         cur = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
             if entry is None:
+                t0 = self.tracer.now()
                 out = self._create(name, fn, host)
+                self._built(name, t0)
             else:
                 self._load(entry, host)
                 out = entry.replay()
         cur.wait_stream(self._stream)
         return out
+
+    def _built(self, name: str, t0: float) -> None:
+        self.tracer.complete(f"compile[{name}]", t0, cat="jit",
+                             tid=TID_COMPILE, callable=name)
 
     def _buffers(self, host) -> List[Tensor]:
         return [torch.empty(a.shape, dtype=a.dtype, device=self.device

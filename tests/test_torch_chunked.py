@@ -26,7 +26,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import tolerance_report, to_numpy  # noqa: E402
+from torch_parity import (hold_stats, tolerance_report,  # noqa: E402
+                          to_numpy)
 
 from repro.configs import base as jbase  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
@@ -80,6 +81,14 @@ def mixed_stream(vocab, lens=(5, 90, 23, 70, 9, 33), seed=3, max_new=6):
             for n in lens]
 
 
+def staggered_stream(vocab):
+    """mixed_stream's prompts with budgets of 2 to 8 new tokens: a request
+    finishes while others decode, and the next long prompt is admitted
+    beside them."""
+    return [(p, n) for (p, _), n in zip(mixed_stream(vocab),
+                                        (3, 8, 4, 6, 2, 7))]
+
+
 def drain(eng, req_cls, stream):
     for uid, (prompt, max_new) in enumerate(stream):
         eng.submit(req_cls(uid=uid, prompt=prompt.copy(),
@@ -110,6 +119,9 @@ def vehicles():
 
 @pytest.fixture(scope="module")
 def reference_drains(vehicles):
+    """The reference engine's chunked drains, and an unchunked dense drain
+    of the mixed prompts with staggered budgets (``qwen3-dense-unchunked``),
+    so that long prompts are admitted beside decoding slots."""
     out = {}
     for run, (name, paged) in RUNS.items():
         cj, _, pj, _ = vehicles[name]
@@ -117,6 +129,11 @@ def reference_drains(vehicles):
         eng = JEngine(pj, cj, slots=SLOTS, max_len=MAX_LEN, paged=paged,
                       page_size=PAGE, chunk_tokens=CHUNK, track_energy=False)
         out[run] = (stream, drain(eng, JRequest, stream), eng.stats())
+    cj, _, pj, _ = vehicles["qwen3"]
+    eng = JEngine(pj, cj, slots=SLOTS, max_len=MAX_LEN, track_energy=False)
+    stream = staggered_stream(cj.vocab_size)
+    out["qwen3-dense-unchunked"] = (stream, drain(eng, JRequest, stream),
+                                    eng.stats())
     return out
 
 
@@ -154,6 +171,28 @@ def test_chunked_engine_matches_reference_engine(vehicles, reference_drains,
     if paged:
         assert eng.pool.conserved()
         assert not eng.state.cache.layers[0].pt.any()  # all-trash tables
+
+
+@pytest.mark.parametrize("chunked", [True, False])
+def test_stats_match_reference_engine(vehicles, reference_drains, chunked):
+    """The dense chunked drain's ``stats()``, and an unchunked drain's of
+    the same prompts with staggered budgets: the reference engine's keys
+    and every value that is not a wall-clock time. The unchunked engine
+    stalls its decoding slots behind the long prompts' prefill waves
+    (``decode_stall_steps`` > 0); a chunked engine runs at most a chunk
+    beside them and never stalls."""
+    cj, ct, _, pt = vehicles["qwen3"]
+    run = "qwen3-dense" if chunked else "qwen3-dense-unchunked"
+    stream, want, want_stats = reference_drains[run]
+    eng = Engine(pt, ct, slots=SLOTS, max_len=MAX_LEN, device="cpu",
+                 chunk_tokens=CHUNK if chunked else None)
+    assert drain(eng, Request, stream) == want
+    st = eng.stats()
+    hold_stats(st, want_stats)
+    if chunked:
+        assert st["decode_stall_steps"] == 0 and st["chunk_waves"] > 0
+    else:
+        assert st["decode_stall_steps"] > 0 and st["chunk_waves"] == 0
 
 
 def _tree_pages(tree) -> set:

@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
-from torch_parity import to_numpy  # noqa: E402
+from torch_parity import hold_stats, to_numpy  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced_for_smoke as jreduced  # noqa: E402
@@ -49,22 +49,47 @@ def _drain(eng, reqs):
     return {f.uid: [int(t) for t in f.tokens] for f in eng.run_until_drained()}
 
 
-def test_greedy_streams_match_reference_engine():
+BUDGETS = [5, 4, 1, 6]  # uid 2 finishes at prefill
+
+
+@pytest.fixture(scope="module")
+def reference_drain():
+    """The reference engine's drain of four prompts: (port config, port
+    params, prompts, streams, the reference engine)."""
     cj, ct = _cfgs()
     pj = JM.init(cj, jax.random.PRNGKey(0))
     pt = from_jax_params(to_numpy(pj), ct, "cpu")
     prompts = _prompts(cj.vocab_size, [5, 7, 3, 6])
-    budgets = [5, 4, 1, 6]  # uid 2 finishes at prefill
     jeng = JEngine(pj, cj, slots=2, max_len=32, track_energy=False)
     want = _drain(jeng, [JRequest(uid=i, prompt=p, max_new_tokens=b)
-                         for i, (p, b) in enumerate(zip(prompts, budgets))])
+                         for i, (p, b) in enumerate(zip(prompts, BUDGETS))])
+    return ct, pt, prompts, want, jeng
+
+
+def _port_drain(reference_drain):
+    ct, pt, prompts, _, _ = reference_drain
     teng = Engine(pt, ct, slots=2, max_len=32, device="cpu")
     got = _drain(teng, [Request(uid=i, prompt=p, max_new_tokens=b)
-                        for i, (p, b) in enumerate(zip(prompts, budgets))])
+                        for i, (p, b) in enumerate(zip(prompts, BUDGETS))])
+    return teng, got
+
+
+def test_greedy_streams_match_reference_engine(reference_drain):
+    want, jeng = reference_drain[3:]
+    teng, got = _port_drain(reference_drain)
     assert got == want
-    assert [len(got[i]) for i in range(4)] == budgets
+    assert [len(got[i]) for i in range(4)] == BUDGETS
     assert teng.steps == jeng.steps
     assert teng.host_transfers == jeng.host_transfers
+
+
+def test_stats_match_reference_engine(reference_drain):
+    """``stats()`` has the reference engine's keys (the port adds the
+    twin's books as ``hw_*``) and every value that is not a wall-clock
+    time equal to it, the compile and stall counters included."""
+    jeng = reference_drain[4]
+    teng, _ = _port_drain(reference_drain)
+    hold_stats(teng.stats(), jeng.stats())
 
 
 def _small_engine(**kw):

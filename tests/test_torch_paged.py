@@ -36,7 +36,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import tolerance_report, to_numpy  # noqa: E402
+from torch_parity import (hold_stats, tolerance_report,  # noqa: E402
+                          to_numpy)
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import reduced_for_smoke as jreduced  # noqa: E402
@@ -334,6 +335,21 @@ def test_paged_engine_matches_reference_engine(models, reference_drains,
         assert st["radix_evictions"] > 0
     assert not eng.state.cache.layers[0].pt.any()  # all-trash tables
     assert eng.pool.conserved()
+
+
+def test_stats_match_reference_engine(models, reference_drains):
+    """The evicting drain's ``stats()``: the reference engine's keys (the
+    port adds the twin's books as ``hw_*``) and every value that is not a
+    wall-clock time, the compile and stall counters included."""
+    cj, ct, _, pt = models
+    stream, ref = reference_drains
+    _pin_splits(cj, rows=SLOTS)
+    eng = Engine(pt, ct, slots=SLOTS, max_len=MAX_LEN, paged=True,
+                 page_size=PAGE, device="cpu", **ENGINE_RUNS["evicting"])
+    assert _drain(eng, Request, stream) == ref["evicting"][0]
+    want = {k: v for k, v in ref["evicting"][1].items() if k != "books"}
+    hold_stats(eng.stats(), want)
+    assert eng.stats()["radix_evictions"] > 0
 
 
 def test_paged_drain_energy_books_equal_reference_engine(models,

@@ -33,7 +33,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from torch_parity import tolerance_report, to_numpy  # noqa: E402
+from torch_parity import (hold_stats, tolerance_report,  # noqa: E402
+                          to_numpy)
 
 from repro.configs import base as jbase  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
@@ -313,6 +314,21 @@ def test_spec_engine_matches_reference_and_spec_off(vehicles,
     if paged:
         assert eng.pool.conserved()
         assert not eng.state.cache.layers[0].pt.any()  # all-trash tables
+
+
+def test_stats_match_reference_engine(vehicles, reference_drains):
+    """The paged spec drain's ``stats()``: the reference engine's keys and
+    every value that is not a wall-clock time, the draft and compile
+    counters included."""
+    cj, ct, _, pt = vehicles["qwen3"]
+    stream, want, want_stats = reference_drains["qwen3-paged"]
+    for rows in (SLOTS, SLOTS * (K + 1)):
+        _pin_splits(cj, rows)
+    eng = Engine(pt, ct, spec=spec.SpecConfig(k=K), slots=SLOTS,
+                 max_len=MAX_LEN, paged=True, page_size=PAGE, device="cpu")
+    assert drain(eng, Request, stream) == want
+    hold_stats(eng.stats(), want_stats)
+    assert eng.stats()["spec_accepted"] > 0
 
 
 def test_self_draft_accepts_every_chain(vehicles):

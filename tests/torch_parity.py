@@ -1,7 +1,7 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py):
-tolerance reports mirrored from tests/test_paged_attn.py, and the
-JAX -> numpy tree conversion that carries reference parameters into the
-port (bf16 as a uint16 bit view)."""
+tolerance reports mirrored from tests/test_paged_attn.py, the JAX -> numpy
+tree conversion that carries reference parameters into the port (bf16 as
+a uint16 bit view), and the engine ``stats()`` comparison."""
 import numpy as np
 
 
@@ -35,3 +35,12 @@ def to_numpy(tree):
         return [to_numpy(v) for v in tree]
     a = np.asarray(tree)
     return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def hold_stats(got: dict, want: dict) -> None:
+    """A port engine's ``stats()`` against the reference engine's: the same
+    keys apart from the twin's books, which the port adds as ``hw_*``, and
+    every value that is not a wall-clock time (``*_s``) equal."""
+    assert {k for k in got if not k.startswith("hw_")} == set(want)
+    assert {k: got[k] for k in want if not k.endswith("_s")} == \
+        {k: float(v) for k, v in want.items() if not k.endswith("_s")}
